@@ -6,9 +6,11 @@ are) plus two options of its own, stripped before getopt sees them:
   missing CUDA device is an error, never a quiet switch to the CPU.
 * ``--engine {torch,oracle}`` (default torch).
 
-Options of ``raft_tpu`` that this package does not carry yet exit 1 with
-an error instead of being ignored. stdout is line-identical to
-``raft_tpu.cli`` apart from the wall-time and ``CMD:`` lines.
+``--trace DIR`` writes a ``torch.profiler`` Chrome trace into DIR. The
+options of ``raft_tpu`` that this package does not carry yet
+(``--devices``, ``--pallas``/``--no-pallas``) exit 1 with an error
+instead of being ignored. stdout is line-identical to ``raft_tpu.cli``
+apart from the wall-time and ``CMD:`` lines.
 """
 
 from __future__ import annotations
@@ -32,8 +34,18 @@ raft_tpu_torch extensions (not part of the reference surface):
   --profile               print per-stage timings
   --stats-json FILE       write machine-readable run stats
   --gz-out                write outputs BGZF-compressed (.gz)
-Not yet supported (exit 1): --devices, --chunk-reads N>0, --spill-paf,
---pallas/--no-pallas, --cov-out diff8|cov, --trace.
+  --chunk-reads N         stream the reads in chunks of N (0 = whole-file;
+                          default: chunks of 32768 when an input is over
+                          RAFT_AUTO_CHUNK_BYTES, 2 GB)
+  --spill-paf / --no-spill-paf
+                          in streaming mode, spill the PAF's coverage
+                          events to per-chunk files (default: auto, PAF
+                          > max(2 GiB, 15% of memory))
+  --cov-out MODE          coverage return path: host (default; rebuilt
+                          host-side, minimal D2H), diff8 (int8 diff
+                          transfer), cov (full int32)
+  --trace DIR             write a torch.profiler Chrome trace into DIR
+Not yet supported (exit 1): --devices, --pallas/--no-pallas.
 """
 
 _OWN = {"--device": ("cuda", "cpu"), "--engine": ("torch", "oracle")}
@@ -70,16 +82,8 @@ def _unsupported(extras: dict) -> list[str]:
     bad = []
     if extras["devices"] is not None:
         bad.append("--devices")
-    if extras["chunk_reads"]:
-        bad.append("--chunk-reads")
-    if extras["spill_paf"]:
-        bad.append("--spill-paf")
     if extras["pallas"] is not None:
         bad.append("--pallas" if extras["pallas"] else "--no-pallas")
-    if extras["cov_out"] not in (None, "host"):
-        bad.append(f"--cov-out {extras['cov_out']}")
-    if extras["trace"] is not None:
-        bad.append("--trace")
     return bad
 
 
@@ -121,6 +125,7 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     print("INFO, main(), started timer")
 
+    from raft_tpu_torch import profiling
     from raft_tpu_torch.pipeline import run_pipeline
     try:
         (params.replace(est_cov=1) if extras["auto_e"] and
@@ -129,11 +134,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"ERROR, {e}", file=sys.stderr)
         return 1
     try:
-        stats = run_pipeline(reads_path, paf_path, params, engine=engine,
-                             strict=extras["strict"],
-                             use_native=extras["use_native"],
-                             gz_out=extras["gz_out"],
-                             auto_e=extras["auto_e"], device=device)
+        with profiling.trace(extras["trace"], device):
+            stats = run_pipeline(reads_path, paf_path, params, engine=engine,
+                                 strict=extras["strict"],
+                                 use_native=extras["use_native"],
+                                 gz_out=extras["gz_out"],
+                                 auto_e=extras["auto_e"], device=device,
+                                 chunk_reads=extras["chunk_reads"],
+                                 spill_paf=extras["spill_paf"],
+                                 cov_out=extras["cov_out"])
     except ValueError as e:
         print(f"ERROR, {e}", file=sys.stderr)
         return 1

@@ -19,9 +19,12 @@ Semantics carried over from the JAX engine:
 * the uint32 event wire word travels as an int32 tensor of the same bits
   and decodes in int64, since PyTorch's ``>>`` on int32 is arithmetic.
 
-Only the default ``cov_out="host"`` mode exists here: the coverage matrix
-stays on the device and ``.coverage.txt`` renders from the events on the
-host.
+Three coverage return modes, as in the JAX engine (``cov_out``,
+``RAFT_COV_OUT``): ``host`` (default) keeps the coverage matrix on the
+device and ``.coverage.txt`` renders from the events on the host;
+``diff8`` ships the int8 per-window diff and the host cumsums it,
+rebuilding from the bucket's own events any row whose diff does not fit
+in int8; ``cov`` ships the int32 matrix.
 """
 
 from __future__ import annotations
@@ -42,12 +45,13 @@ from raft_tpu.result import ComputeResult
 from raft_tpu_torch.ops.pileup_cuda import decode_events, ev_bits_w0, pileup
 
 I32 = torch.int32
+COV_OUT_MODES = ("host", "diff8", "cov")
 
 
 @dataclasses.dataclass(frozen=True)
 class StaticCfg:
     """Per-bucket shapes and parameters (``engine_jax.StaticCfg`` without
-    the Pallas and coverage-return switches)."""
+    the Pallas switch)."""
     B: int
     W: int
     E: int
@@ -61,10 +65,18 @@ class StaticCfg:
     interval_length: int
     div: int
     overlap_length: int
+    cov_out: str = "host"
     ev_pack: int = 32  # event wire format: 32 = one uint32 word, 0 = pairs
 
 
-def derive_cfg(B: int, W: int, E: int, params: AlgoParams) -> StaticCfg:
+def default_cov_out() -> str:
+    """Coverage return mode when the caller names none: ``RAFT_COV_OUT``,
+    else ``host``."""
+    return os.environ.get("RAFT_COV_OUT", "host")
+
+
+def derive_cfg(B: int, W: int, E: int, params: AlgoParams,
+               cov_out: str | None = None) -> StaticCfg:
     """Closed-form slot bounds, field for field those of
     ``engine_jax.derive_cfg``: no input can exceed M, K or F."""
     reso = params.reso
@@ -78,6 +90,7 @@ def derive_cfg(B: int, W: int, E: int, params: AlgoParams) -> StaticCfg:
                      high_cov=params.high_cov, repeat_length=rl,
                      flank=params.flanking_length, interval_length=il,
                      div=params.div, overlap_length=params.overlap_length,
+                     cov_out=cov_out or default_cov_out(),
                      ev_pack=event_pack_mode(W))
 
 
@@ -302,18 +315,34 @@ def unpack_out(packed: np.ndarray, cfg: StaticCfg) -> dict:
         ok8=packed[:, base + 4] != 0)
 
 
-def device_step(lens, ev_off, ev_pk, cfg: StaticCfg):
-    """Full per-bucket pipeline: pileup → repeat scan → chop → packed
-    ``[B, 2K+2F+5]`` int32 on the inputs' device. The ``ok8`` column is
-    always 1: the coverage matrix never leaves the device."""
+def device_step(lens, ev_off, ev_pk, cfg: StaticCfg) -> dict:
+    """Full per-bucket pipeline: pileup → repeat scan → chop, on the
+    inputs' device; the dict of ``engine_jax.device_step_impl``.
+
+    ``packed`` is the ``[B, 2K+2F+5]`` int32 per-read array. By
+    ``cfg.cov_out``: ``diff8`` adds the int8 ``[B, W]`` per-window diff,
+    with ``ok8`` 0 on rows where a window gains or loses more than int8
+    holds (the cast wraps there, as JAX's does; the host rebuilds those
+    rows); ``cov`` adds the int32 ``[B, W]`` coverage; ``host`` adds
+    nothing. ``ok8`` is 1 on every row outside ``diff8``."""
     cov = pileup(ev_off, ev_pk, cfg)
     rep_s, rep_e, rep_n, rep_len_sum = repeat_scan(cov, lens, cfg)
     frags = chop_markers(lens, rep_s, rep_e, cfg)
-    ones = torch.ones((cfg.B, 1), dtype=I32, device=lens.device)
-    return torch.cat(
+    out = {}
+    if cfg.cov_out == "diff8":
+        diff = torch.diff(cov, dim=1,
+                          prepend=torch.zeros_like(cov[:, :1]))
+        ok8 = (diff.amax(dim=1) <= 127) & (diff.amin(dim=1) >= -128)
+        out["diff8"] = diff.to(torch.int8)
+    else:
+        ok8 = torch.ones(cfg.B, dtype=torch.bool, device=lens.device)
+        if cfg.cov_out == "cov":
+            out["cov"] = cov
+    out["packed"] = torch.cat(
         [rep_s, rep_e, frags["char_start"], frags["char_len"],
          rep_n[:, None], rep_len_sum[:, None], frags["n_frag"][:, None],
-         frags["whole"][:, None].to(I32), ones], dim=1)
+         frags["whole"][:, None].to(I32), ok8[:, None].to(I32)], dim=1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -362,17 +391,22 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     ComputeResult out — the counterpart of ``engine_jax.compute_jax``.
 
     Each bucket is one H2D copy, one ``device_step`` on the current
-    stream and one D2H copy of the packed array. ``cov_out`` accepts only
-    ``"host"`` (or None): ``.coverage.txt`` renders from the window-binned
-    events, which ``on_cov_events`` receives before any device work.
+    stream and its D2H copies: the packed array alone in ``host`` mode,
+    plus the ``[B, W]`` diff or coverage in ``diff8`` / ``cov`` mode
+    (``cov_out``, default ``RAFT_COV_OUT`` or ``host``). In ``host`` mode
+    ``.coverage.txt`` renders from the window-binned events, which
+    ``on_cov_events`` receives before any device work; in the other two
+    it never fires, and the result carries ``cov_flat``.
     ``timers_out`` receives the stage seconds that ``RAFT_TIMERS=1``
     prints on stderr; ``grouped`` is an already-computed
     ``events_grouped`` triple (``--auto-e`` reuses its pass).
     ``on_bucket(cfg, lens, ev_off, ev_pk)`` sees each bucket's device
     inputs after the H2D, before its ``device_step``."""
-    if cov_out not in (None, "host"):
-        raise ValueError(f"cov_out={cov_out!r} is not supported by the "
-                         "torch engine (only 'host')")
+    mode = cov_out or default_cov_out()
+    if mode not in COV_OUT_MODES:
+        raise ValueError(f"cov_out={mode!r}: must be one of "
+                         f"{', '.join(COV_OUT_MODES)}")
+    ev_backed = mode == "host"
     device = torch.device(device)
     timers: dict = {}
     t0 = time.perf_counter()
@@ -395,7 +429,6 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     if grouped is not None:
         ev_off_g, w0s, w1s = grouped
         ev_read = ev_lo = ev_hi = None
-        nwr = np.repeat(nw_all, np.diff(ev_off_g))
         mark("events")
     else:
         ev_read, ev_lo, ev_hi = table.events(n, strict=strict)
@@ -407,44 +440,66 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         ev_lo = ev_lo[order]
         ev_hi = ev_hi[order]
         mark("sort")
-        w0s = (ev_lo.astype(np.int64) // reso).astype(np.int32)
-        w1s = np.where(ev_hi < 0, -1,
-                       ev_hi.astype(np.int64) // reso).astype(np.int32)
-        ev_off_g = np.searchsorted(ev_read, np.arange(n + 1)).astype(np.int64)
-        nwr = nw_all[ev_read]
-
-    # event-backed coverage: everything .coverage.txt needs is known now;
-    # Σcov is closed-form with the renderer's clamp semantics
-    cov_off = _cumsum0(nw_all)
-    valid = (w1s >= w0s) & (w0s >= 0) & (w0s < nwr)
-    total_cov = int(np.where(
-        valid, np.minimum(w1s.astype(np.int64), nwr - 1) - w0s + 1,
-        0).sum())
-    if on_cov_events is not None:
-        z32 = np.empty(0, np.int32)
-        z64 = np.empty(0, np.int64)
-        on_cov_events(ComputeResult(
-            n_reads=n, cov_flat=None, cov_off=cov_off,
-            rep_s=z32, rep_e=z32, rep_off=np.zeros(n + 1, np.int64),
-            frag_read=z32, frag_char_start=z64, frag_char_len=z64,
-            frag_whole=np.empty(0, bool),
-            total_coverage=total_cov, total_windows=int(nw_all.sum()),
-            cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g))
-    mark("cov_events")
-
     prebinned = (ev_off_g, w0s, w1s) if grouped is not None else None
+
+    cov_off = _cumsum0(nw_all)
+    if ev_backed:
+        # event-backed coverage: everything .coverage.txt needs is known
+        # now; Σcov is closed-form with the renderer's clamp semantics
+        if grouped is not None:
+            nwr = np.repeat(nw_all, np.diff(ev_off_g))
+        else:
+            w0s = (ev_lo.astype(np.int64) // reso).astype(np.int32)
+            w1s = np.where(ev_hi < 0, -1,
+                           ev_hi.astype(np.int64) // reso).astype(np.int32)
+            ev_off_g = np.searchsorted(ev_read,
+                                       np.arange(n + 1)).astype(np.int64)
+            nwr = nw_all[ev_read]
+        valid = (w1s >= w0s) & (w0s >= 0) & (w0s < nwr)
+        total_cov = int(np.where(
+            valid, np.minimum(w1s.astype(np.int64), nwr - 1) - w0s + 1,
+            0).sum())
+        cov_flat = None
+        if on_cov_events is not None:
+            z32 = np.empty(0, np.int32)
+            z64 = np.empty(0, np.int64)
+            on_cov_events(ComputeResult(
+                n_reads=n, cov_flat=None, cov_off=cov_off,
+                rep_s=z32, rep_e=z32, rep_off=np.zeros(n + 1, np.int64),
+                frag_read=z32, frag_char_start=z64, frag_char_len=z64,
+                frag_whole=np.empty(0, bool),
+                total_coverage=total_cov, total_windows=int(nw_all.sum()),
+                cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g))
+        mark("cov_events")
+    else:
+        w0s = w1s = ev_off_g = None
+        cov_flat = np.empty(int(cov_off[-1]), dtype=np.int32)
+
     outs = []
     for bk in bucketing.iter_buckets(lens, ev_read, ev_lo, ev_hi, reso,
                                      presorted=True, prebinned=prebinned):
-        cfg = derive_cfg(bk.B, bk.W, bk.E, params)
+        cfg = derive_cfg(bk.B, bk.W, bk.E, params, cov_out=mode)
         mark("bucket_prep")
         args = bucket_to_device(bk, cfg, device)
         mark("h2d")
         if on_bucket is not None:
             on_bucket(cfg, *args)
-        packed = device_step(*args, cfg=cfg).cpu().numpy()
+        dev_out = device_step(*args, cfg=cfg)
+        out = unpack_out(dev_out["packed"].cpu().numpy(), cfg)
+        if "diff8" in dev_out:
+            cov = np.cumsum(dev_out["diff8"].cpu().numpy(), axis=1,
+                            dtype=np.int32)
+            bad = np.nonzero(~out["ok8"])[0]
+            if len(bad):
+                # a window gained or lost more than int8 holds, so the
+                # diff wrapped on these rows: rebuild them exactly from
+                # the bucket's own events
+                _host_cov_rows(bk, 1, bad, cov)
+            out["cov"] = cov
+        elif "cov" in dev_out:
+            out["cov"] = dev_out["cov"].cpu().numpy()
         mark("step")
-        outs.append((bk, unpack_out(packed, cfg)))
+        outs.append((bk, out))
 
     # global offsets in read-id order
     rep_n_all = np.zeros(n, dtype=np.int64)
@@ -470,6 +525,12 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         nu = bk.n_used
         rid = bk.read_ids
         rows = np.arange(nu, dtype=np.int64)
+        if not ev_backed:
+            W = out["cov"].shape[1]
+            s_idx, d_idx = _slab_copy_idx(nw_all[rid], rows * W,
+                                          cov_off[rid])
+            cov_flat[d_idx] = out["cov"].ravel()[s_idx]
+
         K = out["rep_s"].shape[1]
         s_idx, d_idx = _slab_copy_idx(rep_n_all[rid], rows * K, rep_off[rid])
         rep_s[d_idx] = out["rep_s"].ravel()[s_idx]
@@ -491,13 +552,46 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
             f"{k}={v:.3f}s" for k, v in timers.items()), file=sys.stderr)
     return ComputeResult(
         n_reads=n,
-        cov_flat=None, cov_off=cov_off,
+        cov_flat=cov_flat, cov_off=cov_off,
         rep_s=rep_s, rep_e=rep_e, rep_off=rep_off,
         frag_read=frag_read, frag_char_start=frag_cs,
         frag_char_len=frag_cl, frag_whole=frag_wh,
-        total_coverage=total_cov,
+        total_coverage=(total_cov if ev_backed
+                        else int(cov_flat.sum(dtype=np.int64))),
         total_windows=int(nw_all.sum()),
         total_repeat_length=total_rep_len,
         total_read_length=int(lens.astype(np.int64).sum()),
         cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g,
     )
+
+
+def _bucket_global_rows(bk, n_shards: int) -> np.ndarray:
+    """Event → global bucket row. Sharded buckets store shard-local row
+    ids per event slab; map them back (pad sentinel → bk.B)."""
+    rows = np.asarray(bk.ev_row, dtype=np.int64)
+    if n_shards > 1:
+        B_local = bk.B // n_shards
+        E_s = bk.E // n_shards
+        slab = np.arange(len(rows), dtype=np.int64) // E_s
+        rows = np.where(rows >= B_local, bk.B, slab * B_local + rows)
+    return rows
+
+
+def _host_cov_rows(bk, n_shards: int, bad: np.ndarray,
+                   cov: np.ndarray) -> None:
+    """Recompute int32 coverage for rows ``bad`` of a bucket from its own
+    events (the same diff+cumsum the device runs, repeat.hpp:62-77
+    semantics) and write them into ``cov`` in place."""
+    W = cov.shape[1]
+    rows = _bucket_global_rows(bk, n_shards)
+    w0 = np.asarray(bk.ev_w0, dtype=np.int64)
+    w1 = np.asarray(bk.ev_w1, dtype=np.int64)
+    sel = (np.isin(rows, bad) & (w1 >= w0)
+           & (w0 >= 0) & (w0 <= W) & (w1 + 1 <= W))
+    remap = np.full(int(bk.B) + 1, -1, dtype=np.int64)
+    remap[bad] = np.arange(len(bad))
+    r = remap[rows[sel]]
+    d = np.zeros((len(bad), W + 1), dtype=np.int32)
+    np.add.at(d, (r, w0[sel]), 1)
+    np.add.at(d, (r, w1[sel] + 1), -1)
+    cov[bad] = np.cumsum(d[:, :W], axis=1)

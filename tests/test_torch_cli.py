@@ -124,9 +124,7 @@ def test_pure_python_io_and_oracle_engine(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--devices", "2"], ["--chunk-reads", "5"], ["--spill-paf"],
-    ["--pallas"], ["--no-pallas"], ["--cov-out", "diff8"],
-    ["--cov-out", "cov"], ["--trace", "tr"]],
+    ["--devices", "2"], ["--pallas"], ["--no-pallas"]],
     ids=lambda f: "_".join(f))
 def test_unsupported_flag_exits_1(tmp_path, capsys, flag):
     reads, paf = datagen.standard_case(seed=15, tmpdir=str(tmp_path),
@@ -134,10 +132,27 @@ def test_unsupported_flag_exits_1(tmp_path, capsys, flag):
     rc, out, err = _run(port_cli.main, [*ARGS, *flag, "--device", "cpu",
                                         reads, paf], tmp_path, capsys)
     assert rc == 1
-    assert (f"ERROR, {' '.join(flag[:1] if flag[0] != '--cov-out' else flag)}"
-            " is not yet supported by raft_tpu_torch") in err
+    assert f"ERROR, {flag[0]} is not yet supported by raft_tpu_torch" in err
     assert out == ""
     assert not (tmp_path / "200.reads.fasta").exists()
+
+
+@pytest.mark.parametrize("flag", [
+    ["--chunk-reads", "5"], ["--spill-paf"], ["--cov-out", "diff8"],
+    ["--cov-out", "cov"], ["--trace", "tr"],
+    ["--chunk-reads", "4", "--spill-paf", "--cov-out", "diff8"]],
+    ids=lambda f: "_".join(f))
+def test_streaming_cov_out_and_trace_flags_byte_equal(tmp_path, capsys,
+                                                      flag):
+    """Streaming, PAF spill, coverage return modes and --trace: files
+    byte-equal and stdout line-equal to raft_tpu.cli with the same
+    flags."""
+    reads, paf = datagen.standard_case(seed=15, tmpdir=str(tmp_path),
+                                       n_reads=25)
+    _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf], extra=flag)
+    if "--trace" in flag:
+        from raft_tpu_torch.profiling import TRACE_FILE
+        assert (tmp_path / "tr" / TRACE_FILE).stat().st_size > 0
 
 
 def test_default_device_cuda_without_gpu_exits_1(tmp_path, capsys,
@@ -162,13 +177,17 @@ def test_help_names_the_port_options(capsys):
 
 
 def test_port_run_never_imports_jax(tmp_path):
-    """In a fresh process (this one imported jax in conftest), a full CLI
-    run of the port leaves jax out of sys.modules."""
+    """In a fresh process (this one imported jax in conftest), full CLI
+    runs of the port, whole-file and then chunked under --trace, leave
+    jax out of sys.modules."""
     reads, paf = datagen.standard_case(seed=17, tmpdir=str(tmp_path),
                                        n_reads=10)
+    chunked = [*ARGS, "-o", "ch", "--chunk-reads", "3", "--trace", "tr",
+               "--device", "cpu", reads, paf]
     code = ("import sys\n"
             "from raft_tpu_torch.cli import main\n"
             f"rc = main({[*ARGS, '--device', 'cpu', reads, paf]!r})\n"
+            f"rc += main({chunked!r})\n"
             "print('RC', rc, 'JAX', 'jax' in sys.modules)\n")
     env = {**os.environ, "PYTHONPATH": ROOT}
     r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
@@ -176,6 +195,9 @@ def test_port_run_never_imports_jax(tmp_path):
     assert r.returncode == 0, r.stderr
     assert r.stdout.splitlines()[-1] == "RC 0 JAX False"
     assert (tmp_path / "200.reads.fasta").exists()
+    assert ((tmp_path / "ch.reads.fasta").read_bytes()
+            == (tmp_path / "200.reads.fasta").read_bytes())
+    assert os.listdir(tmp_path / "tr")
 
 
 def test_no_jax_import_in_port_sources():

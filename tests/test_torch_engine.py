@@ -106,9 +106,9 @@ def test_bucket_area_cap(monkeypatch):
     seen = []
     real = engine_torch.derive_cfg
 
-    def spy(B, W, E, params):
+    def spy(B, W, E, params, **kw):
         seen.append((B, W))
-        return real(B, W, E, params)
+        return real(B, W, E, params, **kw)
 
     monkeypatch.setattr(engine_torch, "derive_cfg", spy)
     rng = np.random.default_rng(9)
@@ -149,11 +149,16 @@ def test_cov_events_callback_timers_and_grouped(monkeypatch, capsys):
     _assert_same(res, compute_jax(store, table, params))
 
 
-def test_cov_out_other_than_host_is_refused():
+def test_cov_out_other_than_host_is_refused(monkeypatch):
+    """A coverage return mode other than host, diff8 or cov is refused,
+    from the argument and from RAFT_COV_OUT."""
     store = _mk_store([1000])
     table = _as_table([(0, 0, 500, 0, 100, 600)], "grouped")
     with pytest.raises(ValueError, match="cov_out"):
-        compute_torch(store, table, AlgoParams(est_cov=2), cov_out="diff8")
+        compute_torch(store, table, AlgoParams(est_cov=2), cov_out="diff16")
+    monkeypatch.setenv("RAFT_COV_OUT", "int8")
+    with pytest.raises(ValueError, match="cov_out"):
+        compute_torch(store, table, AlgoParams(est_cov=2))
 
 
 @pytest.mark.parametrize("path", ["grouped", "sorted"])

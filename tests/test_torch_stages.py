@@ -33,8 +33,7 @@ def _eq(want, got, msg=""):
 
 def _jax_cfg(tcfg):
     """The JAX cfg with the same shapes, wire format and parameters."""
-    return ej.StaticCfg(**dataclasses.asdict(tcfg), use_pallas=False,
-                        cov_out="host")
+    return ej.StaticCfg(**dataclasses.asdict(tcfg), use_pallas=False)
 
 
 SLOT_PARAMS = [
@@ -196,7 +195,9 @@ def test_device_step_packed_matches_jax(seed, rl, il, l, ov, flank):
                                             max_ev_per_read=40)
     for bk in bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50):
         cfg = et.derive_cfg(bk.B, bk.W, bk.E, params)
-        got = et.device_step(*et.bucket_to_device(bk, cfg, "cpu"), cfg=cfg)
+        out = et.device_step(*et.bucket_to_device(bk, cfg, "cpu"), cfg=cfg)
+        assert set(out) == {"packed"}  # host mode: one D2H array
+        got = out["packed"]
         jcfg = ej.derive_cfg(bk.B, bk.W, bk.E, params, use_pallas=False,
                              cov_out="host")
         want = ej.device_step(
