@@ -1,8 +1,10 @@
 """Smoke run of raft_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; one CUDA card
+    python3 chip_smoke.py               # from the repository root; one card
+    python3 chip_smoke.py --multi-card  # two or more cards of one host
 
-1. Prints the card (torch's name, and nvidia-smi's name and power limit).
+1. Prints the card (torch's name, and nvidia-smi's name, power limit and
+   compute mode).
 2. Builds the CUDA pileup kernel from ``raft_tpu_torch/csrc`` with nvcc.
 3. Holds the kernel against its plain PyTorch twin on the card, exactly,
    on synthetic buckets: main-path shapes, a W=64 tail, two multi-stripe
@@ -20,9 +22,25 @@
    ``--cov-out cov`` with ``--device cuda`` must equal the ``host`` run
    byte for byte; then each mode's engine stage seconds (the ``step``
    timer holds its D2H) and D2H bytes, alternating modes.
-6. ``--trace DIR`` on the small dataset with ``--device cuda``: the
+6. Read sharding and multi-process runs on the 32k dataset, each
+   byte-equal to the unsharded ``--device cuda`` run:
+   a. the CLI with ``--devices 1 --device cuda``;
+   b. ``run_pipeline(devices=[cuda:0] * 4)``, four shards on one card,
+      whole-file and ``--chunk-reads 8192``, each timed in turns with the
+      unsharded run (unsharded, sharded, sharded, unsharded); every timed
+      sharded run must have launched the kernel once per shard it
+      records, and an untimed rerun holds every shard of every bucket
+      against the plain twin, exactly;
+   c. ``run_distributed`` in two processes (gloo over 127.0.0.1), both
+      ranks on ``cuda:0`` when the card's compute mode is ``Default``
+      (otherwise rank 1 runs on the CPU, and a line says so); rank 0's
+      concatenated shards must equal the single run. Each rank holds every
+      pileup call of its engine against the plain twin, exactly, at the
+      rank's own bucket shapes, and prints its wall and its pileup launch
+      count, which must be one per call.
+7. ``--trace DIR`` on the small dataset with ``--device cuda``: the
    Chrome trace must name the pileup kernel.
-7. Streaming at real size: a 100k-read dataset (``gen_dataset``, seed 7,
+8. Streaming at real size: a 100k-read dataset (``gen_dataset``, seed 7,
    about 2.4 GB of FASTA, over the 2 GB auto-chunk gate) run by the
    default CLI with ``--device cuda`` must auto-stream in 4 chunks (with
    ``RAFT_CHUNK_TRACE``, printed per chunk); then ``--chunk-reads 0``
@@ -34,10 +52,10 @@
    cpu``. The four files of all seven runs must be equal: each run's
    outputs are hashed (SHA-256) and deleted, so the disk holds the inputs
    plus one run's outputs (about 6 GB).
-8. Checks that jax was never imported, prints the kernel table as one
+9. Checks that jax was never imported, prints the kernel table as one
    JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
 
-Every CLI run on the card (steps 4-7) counts its own pileup launches
+Every CLI run on the card (steps 4-8) counts its own pileup launches
 (reset just before, read just after) and must have launched the kernel
 once per bucket it reports; it prints its wall, reads/s, stage seconds
 and peak ``torch.cuda.max_memory_allocated``.
@@ -47,6 +65,14 @@ Only ``raft_tpu_torch`` is imported. raft_tpu's native I/O Makefile takes
 them, so the library is built with the Makefile's own toolchain. The
 environment's ``RAFT_AUTO_CHUNK_BYTES``, ``RAFT_COV_OUT`` and
 ``RAFT_CHUNK_TRACE`` are dropped too, so every run takes the defaults.
+
+``--multi-card`` runs steps 1-2 and then only what needs several cards,
+on the 32k dataset: the CLI with ``--devices N`` over all N cards,
+whole-file and ``--chunk-reads 8192``, each timed in turns with the
+unsharded run on cuda:0 and rerun untimed with every shard held against
+the plain twin on its own card; then ``run_distributed`` in N processes,
+one card each (``CUDA_VISIBLE_DEVICES``), every launch held as in step
+6c. All byte-equal to the unsharded run; the same two closing lines.
 
 Any failed check exits nonzero before the last line. Without a CUDA
 device it exits 2 and prints no result.
@@ -70,6 +96,8 @@ N_BIG = 100_000          # streaming dataset: ~2.4 GB FASTA, over the gate
 N_BIG_OVERLAPS = 3_000_000
 BIG_CHUNKS = 4           # ceil(100000 / DEFAULT_CHUNK_READS = 32768)
 SPILL_CHUNK = 8192
+N_SHARDS = 4             # shards on one card (step 6b)
+SHARD_CHUNK = 8192
 # native I/O build settings the run leaves to raft_tpu's Makefile, and
 # run-time overrides the run must not inherit
 MAKE_ENV = ("CXX", "CXXFLAGS", "LDFLAGS")
@@ -136,28 +164,31 @@ def make_case(np, et, params, B, W, per_row, wire, rng):
 def hold(torch, pileup_cuda, cfg, off_d, pk_d, label, times=None):
     """Kernel against plain on one bucket's device inputs, exactly; both
     median times. With a ``times`` dict, a (B, W, E, wire) shape already
-    in it is compared but not timed again, and prints nothing. Returns
-    the table row."""
+    in it on the same device is compared but not timed again, and prints
+    nothing. Returns the table row."""
     wire = "pairs" if cfg.ev_pack == 0 else "pack32"
-    got = pileup_cuda.pileup(off_d, pk_d, cfg)
-    want = pileup_cuda.pileup_torch(off_d, pk_d, cfg)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max().item())
-    check(torch.equal(got, want) and err == 0,
-          f"{label}: kernel != plain at B={cfg.B} W={cfg.W} {wire} "
-          f"(max |err| {err})")
-    key = (cfg.B, cfg.W, cfg.E, wire)
-    if times is not None and key in times:
-        ms, plain = times[key]
-    else:
-        ms = device_ms(torch, lambda: pileup_cuda.pileup(off_d, pk_d, cfg))
-        plain = device_ms(
-            torch, lambda: pileup_cuda.pileup_torch(off_d, pk_d, cfg))
-        if times is not None:
-            times[key] = ms, plain
-        print(f"{label} B={cfg.B:5d} W={cfg.W:8d} E={cfg.E:8d} {wire:6s} "
-              f"exact  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-              f"ratio {plain / ms:.2f}x")
+    dev = off_d.device
+    with torch.cuda.device(dev):  # synchronize and time on the tensors' card
+        got = pileup_cuda.pileup(off_d, pk_d, cfg)
+        want = pileup_cuda.pileup_torch(off_d, pk_d, cfg)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        check(torch.equal(got, want) and err == 0,
+              f"{label}: kernel != plain at B={cfg.B} W={cfg.W} {wire} on "
+              f"{dev} (max |err| {err})")
+        key = (cfg.B, cfg.W, cfg.E, wire, str(dev))
+        if times is not None and key in times:
+            ms, plain = times[key]
+        else:
+            ms = device_ms(torch,
+                           lambda: pileup_cuda.pileup(off_d, pk_d, cfg))
+            plain = device_ms(
+                torch, lambda: pileup_cuda.pileup_torch(off_d, pk_d, cfg))
+            if times is not None:
+                times[key] = ms, plain
+            print(f"{label} B={cfg.B:5d} W={cfg.W:8d} E={cfg.E:8d} "
+                  f"{wire:6s} {dev} exact  kernel {ms:.4f} ms  plain "
+                  f"{plain:.4f} ms  ratio {plain / ms:.2f}x")
     return dict(B=cfg.B, W=cfg.W, E=cfg.E, wire=wire, max_abs_err=err,
                 ms=ms, plain_ms=plain)
 
@@ -247,16 +278,20 @@ def drive(torch, cli, pileup_cuda, opts, inputs, prefix, label, n_reads):
 def held_run(torch, cli, pipeline, pileup_cuda, opts, inputs, prefix, label,
              st, times):
     """Untimed rerun of a path that ``drive`` timed, through
-    ``run_pipeline`` with the same flags: every bucket's device inputs,
-    in every chunk, are held against the plain twin, exactly, as the
-    engine hands them to the kernel. Fails unless those buckets are the
+    ``run_pipeline`` with the same flags (``--devices N`` too): every
+    bucket's device inputs, in every chunk and on every card, are held
+    against the plain twin, exactly, as the engine hands them to the
+    kernel. Fails unless those buckets are the
     timed run's, in order. Returns the rows and the outputs' SHA-256."""
+    from raft_tpu_torch.parallel import make_devices
     params, _, _, extras = cli.parse_args([*opts, "-o", prefix, *inputs])
     rows = []
     pipeline.run_pipeline(
         *inputs, params, verbose=False, device="cuda",
         chunk_reads=extras["chunk_reads"], spill_paf=extras["spill_paf"],
         cov_out=extras["cov_out"],
+        devices=(make_devices(extras["devices"], "cuda")
+                 if extras["devices"] else None),
         on_bucket=lambda cfg, lens, off, pk: rows.append(
             hold(torch, pileup_cuda, cfg, off, pk, label, times)))
     check([[r["B"], r["W"], r["E"]] for r in rows] == st["buckets"],
@@ -292,10 +327,221 @@ def cov_mode_timing(torch, et, pipeline, params, reads, paf):
               + ", ".join(f"{k} {v:.4f} s" for k, v in timers.items()))
 
 
-def main() -> int:
+def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
+                  times):
+    """Step 6b: four shards on one card, whole-file and chunked, each
+    timed in turns with the unsharded run, then rerun untimed with every
+    shard held against the plain twin. Returns (launches by path, held
+    rows)."""
+    four = [torch.device("cuda", 0)] * N_SHARDS
+    by_path, rows = {}, []
+    for sched, chunk in (("whole-file", 0),
+                         (f"--chunk-reads {SHARD_CHUNK}", SHARD_CHUNK)):
+        params = cli.parse_args([*BENCH_ARGS, "-o", prefix, *inputs])[0]
+        walls = {"unsharded": [], "sharded": []}
+        for devs in (None, four, four, None):
+            kind = "sharded" if devs else "unsharded"
+            torch.cuda.synchronize()
+            pileup_cuda.launches = 0
+            t0 = time.perf_counter()
+            st = pipeline.run_pipeline(*inputs, params, verbose=False,
+                                       device="cuda", chunk_reads=chunk,
+                                       devices=devs)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            launches = pileup_cuda.launches
+            check(launches == len(st.buckets) > 0,
+                  f"{kind} {sched}: pileup launches {launches} != "
+                  f"recorded shards {len(st.buckets)}")
+            check(digest_and_remove(prefix) == want,
+                  f"{kind} {sched}: outputs differ from the unsharded "
+                  "--device cuda run's")
+            if devs:
+                shards = st.buckets
+                check(st.devices == ["cuda:0"] * N_SHARDS
+                      and len(shards) % N_SHARDS == 0,
+                      f"sharded {sched}: devices {st.devices}, "
+                      f"{len(shards)} shards")
+                by_path[f"32k {N_SHARDS} shards on cuda:0, {sched}"] = (
+                    launches)
+            else:
+                n_buckets = len(st.buckets)
+        check(len(shards) == N_SHARDS * n_buckets,
+              f"{sched}: {len(shards)} shards for {n_buckets} buckets")
+        label = f"32k {N_SHARDS} shards {sched}, held"
+        held = []
+        pipeline.run_pipeline(
+            *inputs, params, verbose=False, device="cuda", chunk_reads=chunk,
+            devices=four, on_bucket=lambda cfg, lens, off, pk: held.append(
+                hold(torch, pileup_cuda, cfg, off, pk, label, times)))
+        check([[r["B"], r["W"], r["E"]] for r in held]
+              == [list(b) for b in shards],
+              f"{label}: the shards held against plain are not the timed "
+              "run's")
+        check(digest_and_remove(prefix) == want,
+              f"{label}: outputs differ from the unsharded run's")
+        rows += held
+        print(f"32k {sched}: {n_buckets} buckets, {len(shards)} shards on "
+              f"cuda:0; kernel == plain on every shard; walls (s) unsharded "
+              + " / ".join(f"{w:.3f}" for w in walls["unsharded"])
+              + ", sharded " + " / ".join(f"{w:.3f}" for w in
+                                          walls["sharded"])
+              + "; outputs == unsharded (4 files)")
+    return by_path, rows
+
+
+# One rank of step 6c (and of --multi-card) as one JSON line: its wall,
+# its pileup launch count, whether jax was imported, and a row per pileup
+# call of the engine: that call's (B, W, E), held against the plain twin on
+# the same device inputs. The launch count rises only in the real wrapper.
+RANK_CODE = """\
+import json, sys, time
+import torch
+from raft_tpu_torch import engine_torch
+from raft_tpu_torch.cli import parse_args
+from raft_tpu_torch.ops import pileup_cuda
+from raft_tpu_torch.parallel import run_distributed
+held = []
+def held_pileup(ev_off, ev_pk, cfg):
+    got = pileup_cuda.pileup(ev_off, ev_pk, cfg)
+    want = pileup_cuda.pileup_torch(ev_off, ev_pk, cfg)
+    held.append(dict(
+        B=cfg.B, W=cfg.W, E=cfg.E, equal=torch.equal(got, want),
+        max_abs_err=int((got.long() - want.long()).abs().max().item())))
+    return got
+engine_torch.pileup = held_pileup
+params = parse_args({args!r})[0]
+pileup_cuda.launches = 0
+t0 = time.perf_counter()
+run_distributed({reads!r}, {paf!r}, params, coordinator={coord!r},
+                num_processes={n}, process_id={rank}, device={device!r})
+if {device!r} == "cuda":
+    torch.cuda.synchronize()
+print(json.dumps({{"rank": {rank}, "device": {device!r},
+                  "wall": time.perf_counter() - t0,
+                  "launches": pileup_cuda.launches, "held": held,
+                  "jax": "jax" in sys.modules}}))
+"""
+
+
+def multi_process_phase(inputs, prefix, want, devs, visible=None):
+    """``run_distributed`` in ``len(devs)`` processes over gloo on
+    127.0.0.1, rank r on ``devs[r]`` (``cuda`` or ``cpu``), with
+    ``CUDA_VISIBLE_DEVICES`` set to ``visible[r]`` when given. Every
+    pileup call of every rank is held against the plain twin, exactly,
+    and a rank on the card must have launched the kernel once per call.
+    Rank 0's concatenated shards must equal the single run. Returns (the
+    launches by path, the held rows)."""
+    import socket
+    n = len(devs)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    args = [*BENCH_ARGS, "-o", prefix, *inputs]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_CODE.format(
+            args=args, reads=inputs[0], paf=inputs[1], coord=coord, n=n,
+            rank=rank, device=dev)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env if visible is None
+        else {**env, "CUDA_VISIBLE_DEVICES": visible[rank]})
+        for rank, dev in enumerate(devs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    by_path, rows = {}, []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        where = r_dev = devs[rank]
+        if visible is not None:
+            where = f"{r_dev} (CUDA_VISIBLE_DEVICES={visible[rank]})"
+        label = f"{n}-process rank {rank} on {where}"
+        check(p.returncode == 0, f"{label}: exit {p.returncode}\n"
+              f"{err[-3000:]}")
+        r = json.loads(out.splitlines()[-1])
+        check(not r["jax"], f"{label} imported jax")
+        held = r["held"]
+        check(len(held) > 0
+              and r["launches"] == (len(held) if r_dev == "cuda" else 0),
+              f"{label}: {r['launches']} pileup launches for {len(held)} "
+              "pileup calls")
+        bad = [h for h in held if not h["equal"] or h["max_abs_err"]]
+        check(not bad, f"{label}: kernel != plain on {bad}")
+        by_path[f"32k {label}"] = r["launches"]
+        rows += held
+        shapes = sorted({(h["B"], h["W"]) for h in held})
+        print(f"{label}: wall {r['wall']:.3f} s in run_distributed, "
+              f"{r['launches']} pileup launches, each held == plain, "
+              f"(B, W) {shapes}")
+    check(digest_and_remove(prefix) == want,
+          f"{n}-process: concatenated shards differ from the single run's")
+    print(f"{n}-process: {wall:.3f} s for all processes, start-up "
+          "included; concatenated shards == single run (4 files)")
+    return by_path, rows
+
+
+def multi_card(torch, cli, pipeline, pileup_cuda, gen_dataset, work):
+    """``--multi-card``: the 32k dataset sharded over every card, through
+    the CLI (``--devices N``, whole-file and chunked, timed in turns with
+    the unsharded run on cuda:0, then held shard by shard against the
+    plain twin on each card), and ``run_distributed`` with one card per
+    rank. Returns (launches by path, held rows of the whole-file run,
+    its path label, every held row)."""
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--multi-card needs two or more cards, found {n}")
+    reads, paf = gen_dataset(os.path.join(work, "bench"), n_reads=N_READS,
+                             n_overlaps=N_READS * 30, est_cov=20, seed=7)
+    inputs = (reads, paf)
+    prefix = os.path.join(work, "out")
+    drive(torch, cli, pileup_cuda, BENCH_ARGS, inputs, prefix,
+          "32k unsharded on cuda:0, warm-up", N_READS)
+    want = digest_and_remove(prefix)
+    by_path, rows, all_rows, times = {}, [], [], {}
+    cards = [f"cuda:{i}" for i in range(n)]
+    for extra in ([], ["--chunk-reads", str(SHARD_CHUNK)]):
+        sharded = ["--devices", str(n), *extra]
+        for opts in (extra, sharded, sharded, extra):
+            label = "32k " + (" ".join(opts) or "unsharded on cuda:0")
+            st = drive(torch, cli, pileup_cuda, BENCH_ARGS + opts, inputs,
+                       prefix, label, N_READS)
+            check(digest_and_remove(prefix) == want,
+                  f"{label}: outputs differ from the unsharded run's")
+            if opts is sharded:
+                check(st["devices"] == cards
+                      and len(st["buckets"]) % n == 0,
+                      f"{label}: devices {st['devices']}, "
+                      f"{len(st['buckets'])} shards")
+                by_path[label] = st["launches"]
+                sharded_label, sharded_st = label, st
+        held, dig = held_run(torch, cli, pipeline, pileup_cuda,
+                             BENCH_ARGS + sharded, inputs, prefix,
+                             sharded_label + ", held", sharded_st, times)
+        check(dig == want, f"{sharded_label}, held: outputs differ")
+        rows = rows or held
+        all_rows += held
+    rank_paths, rank_rows = multi_process_phase(
+        inputs, os.path.join(work, "dist"), want, ["cuda"] * n,
+        visible=[str(i) for i in range(n)])
+    by_path.update(rank_paths)
+    return by_path, rows, f"32k --devices {n}", all_rows + rank_rows
+
+
+def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if argv not in ([], ["--multi-card"]):
+        print("usage: python3 chip_smoke.py [--multi-card]", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -315,6 +561,11 @@ def main() -> int:
           f"device 0: {name}; device_count {torch.cuda.device_count()}")
     print("nvidia-smi --query-gpu=name,power.limit:")
     print(smi.strip())
+    compute_mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.splitlines()[0].strip()
+    print(f"nvidia-smi --query-gpu=compute_mode: {compute_mode}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -323,6 +574,12 @@ def main() -> int:
     for line in log.splitlines():
         if "ptxas" in line or "error" in line.lower():
             print(f"  {line.strip()}")
+
+    if argv:
+        with tempfile.TemporaryDirectory(prefix="raft_smoke_") as work:
+            by_path, rows, label, all_rows = multi_card(
+                torch, cli, pipeline, pileup_cuda, gen_dataset, work)
+        return report(torch, name, label, by_path, rows, all_rows)
 
     # 3. kernel vs plain on the card, synthetic buckets
     params = cli.parse_args(BENCH_ARGS + ["reads", "paf"])[0]
@@ -414,10 +671,34 @@ def main() -> int:
             by_path[label] = st["launches"]
         print("32k --cov-out diff8 and cov == host (4 files)")
         cov_mode_timing(torch, et, pipeline, params, reads, paf)
+
+        # 6a. --devices 1 through the CLI
+        label = "32k --devices 1"
+        st = drive(torch, cli, pileup_cuda, BENCH_ARGS + ["--devices", "1"],
+                   (reads, paf), os.path.join(work, "dev1"), label, N_READS)
+        check(st["devices"] == ["cuda:0"]
+              and digest_and_remove(os.path.join(work, "dev1")) == want,
+              f"{label}: devices {st['devices']} or outputs differ from "
+              "the unsharded run's")
+        by_path[label] = st["launches"]
+        print(f"{label}: outputs == unsharded (4 files)")
+        # 6b. four shards on one card
+        shard_paths, shard_rows = sharded_phase(
+            torch, cli, pipeline, pileup_cuda, (reads, paf),
+            os.path.join(work, "shard"), want, {})
+        by_path.update(shard_paths)
+        # 6c. two processes on the one card
+        devs = ["cuda", "cuda" if compute_mode == "Default" else "cpu"]
+        if devs[1] == "cpu":
+            print(f"two-process: compute mode {compute_mode!r} admits one "
+                  "process per card: rank 1 runs --device cpu")
+        rank_paths, rank_rows = multi_process_phase(
+            (reads, paf), os.path.join(work, "dist"), want, devs)
+        by_path.update(rank_paths)
         for f in (reads, paf):
             os.remove(f)
 
-        # 6. --trace on the small input names the pileup kernel
+        # 7. --trace on the small input names the pileup kernel
         tdir = os.path.join(work, "trace")
         st = drive(torch, cli, pileup_cuda, BENCH_ARGS + ["--trace", tdir],
                    small, os.path.join(work, "tr"), "small --trace", 400)
@@ -432,7 +713,7 @@ def main() -> int:
               f"kernel ({kev[0]['name']}), "
               f"{sum(e.get('dur', 0) for e in kev):.1f} us in all")
 
-        # 7. streaming at real size: auto-stream, whole-file, spill
+        # 8. streaming at real size: auto-stream, whole-file, spill
         t0 = time.perf_counter()
         big = gen_dataset(os.path.join(work, "big"), n_reads=N_BIG,
                           n_overlaps=N_BIG_OVERLAPS, est_cov=20, seed=7)
@@ -504,15 +785,24 @@ def main() -> int:
               f"held, == whole-file on cpu ({len(digests)} runs, 4 files, "
               f"SHA-256 {first['.reads.fasta'][:16]}...)")
 
+    return report(torch, name, "32k whole-file", by_path, real,
+                  kcases + real + big_rows + shard_rows + rank_rows)
+
+
+def report(torch, name, main_label, by_path, main_rows, all_rows) -> int:
+    """The closing lines: the kernel table (launches of the main path's
+    run and of every path, the largest error of every comparison, the
+    kernel and plain milliseconds summed over the main path's buckets),
+    then the result."""
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [{
         "name": "pileup", "route": "cuda",
         "source": "raft_tpu_torch/csrc/pileup.cu",
         "replaces": "raft_tpu/ops/pileup_pallas.py:39",
-        "launches": launches, "launches_by_path": by_path,
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in kcases + real + big_rows),
-        "ms": kms, "plain_ms": pms}]}))
+        "launches": by_path[main_label], "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in all_rows),
+        "ms": sum(r["ms"] for r in main_rows),
+        "plain_ms": sum(r["plain_ms"] for r in main_rows)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -520,4 +810,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,11 +6,13 @@ are) plus two options of its own, stripped before getopt sees them:
   missing CUDA device is an error, never a quiet switch to the CPU.
 * ``--engine {torch,oracle}`` (default torch).
 
-``--trace DIR`` writes a ``torch.profiler`` Chrome trace into DIR. The
-options of ``raft_tpu`` that this package does not carry yet
-(``--devices``, ``--pallas``/``--no-pallas``) exit 1 with an error
-instead of being ignored. stdout is line-identical to ``raft_tpu.cli``
-apart from the wall-time and ``CMD:`` lines.
+``--trace DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
+``--devices N`` shards the reads over ``parallel.mesh.make_devices(N,
+--device)``: the first N cards (fewer if fewer exist), or N shards on the
+CPU; 0 runs unsharded. ``--pallas``/``--no-pallas``, which this package
+does not carry, exit 1 with an error instead of being ignored. stdout is
+line-identical to ``raft_tpu.cli`` apart from the wall-time and ``CMD:``
+lines.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ raft_tpu_torch extensions (not part of the reference surface):
                           host-side, minimal D2H), diff8 (int8 diff
                           transfer), cov (full int32)
   --trace DIR             write a torch.profiler Chrome trace into DIR
-Not yet supported (exit 1): --devices, --pallas/--no-pallas.
+  --devices N             shard the reads over the first N CUDA devices
+                          (N shards with --device cpu; 0 = unsharded)
+Not yet supported (exit 1): --pallas/--no-pallas.
 """
 
 _OWN = {"--device": ("cuda", "cpu"), "--engine": ("torch", "oracle")}
@@ -79,12 +83,9 @@ def _strip_own_options(argv: list[str]):
 def _unsupported(extras: dict) -> list[str]:
     """The raft_tpu options in ``extras`` that this package does not carry
     yet."""
-    bad = []
-    if extras["devices"] is not None:
-        bad.append("--devices")
     if extras["pallas"] is not None:
-        bad.append("--pallas" if extras["pallas"] else "--no-pallas")
-    return bad
+        return ["--pallas" if extras["pallas"] else "--no-pallas"]
+    return []
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -110,6 +111,14 @@ def main(argv: list[str] | None = None) -> int:
         if not torch.cuda.is_available():
             print("ERROR, --device cuda: no CUDA device is available "
                   "(pass --device cpu to run on the CPU)", file=sys.stderr)
+            return 1
+    devices = None
+    if extras["devices"] and engine == "torch":
+        from raft_tpu_torch.parallel.mesh import make_devices
+        try:
+            devices = make_devices(extras["devices"], device)
+        except ValueError as e:
+            print(f"ERROR, {e}", file=sys.stderr)
             return 1
 
     if params.est_cov <= 0 and not extras["auto_e"]:
@@ -142,7 +151,7 @@ def main(argv: list[str] | None = None) -> int:
                                  auto_e=extras["auto_e"], device=device,
                                  chunk_reads=extras["chunk_reads"],
                                  spill_paf=extras["spill_paf"],
-                                 cov_out=extras["cov_out"])
+                                 cov_out=extras["cov_out"], devices=devices)
     except ValueError as e:
         print(f"ERROR, {e}", file=sys.stderr)
         return 1

@@ -118,16 +118,23 @@ def pack_events(ev_w0, ev_w1, cfg: StaticCfg) -> np.ndarray:
     return w0c.view(np.uint32) | (span.view(np.uint32) << np.uint32(k))
 
 
-def bucket_to_device(bk: bucketing.Bucket, cfg: StaticCfg, device):
-    """H2D of one bucket: (lens int32 [B], ev_off int32 [B+1], ev_pk).
+def host_inputs(bk: bucketing.Bucket, cfg: StaticCfg):
+    """One bucket's device inputs on the host: (lens int32 [B], ev_off
+    int32 [B+1], ev_pk).
 
     The int16 bucket columns widen to int32 in ``pack_events``; the uint32
-    wire words travel as int32 tensors holding the same bits."""
+    wire words travel as int32 holding the same bits."""
     pk = pack_events(bk.ev_w0, bk.ev_w1, cfg)
     if pk.dtype == np.uint32:
         pk = pk.view(np.int32)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
-                 .to(device) for a in (bk.lens, bk.ev_off, pk))
+    return tuple(np.ascontiguousarray(a, dtype=np.int32)
+                 for a in (bk.lens, bk.ev_off, pk))
+
+
+def bucket_to_device(bk: bucketing.Bucket, cfg: StaticCfg, device):
+    """H2D of one bucket: ``host_inputs`` as tensors on ``device``."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in host_inputs(bk, cfg))
 
 
 def unpack_events(ev_pk, cfg: StaticCfg):
@@ -301,6 +308,11 @@ def packed_width(cfg: StaticCfg) -> int:
     return 2 * cfg.K + 2 * cfg.F + PACKED_SCALARS
 
 
+def rep_len_sum_col(cfg: StaticCfg) -> int:
+    """Column of ``rep_len_sum`` in the packed array."""
+    return 2 * cfg.K + 2 * cfg.F + 1
+
+
 def unpack_out(packed: np.ndarray, cfg: StaticCfg) -> dict:
     """Host-side view split of the packed [B, …] int32 array."""
     K, F = cfg.K, cfg.F
@@ -386,9 +398,14 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
                   on_cov_events=None,
                   timers_out: dict | None = None,
                   grouped=None, device="cpu",
-                  on_bucket=None) -> ComputeResult:
+                  on_bucket=None, devices=None) -> ComputeResult:
     """Torch engine: buckets through ``device_step`` on ``device``, flat
     ComputeResult out — the counterpart of ``engine_jax.compute_jax``.
+
+    ``devices`` (a list of torch devices, the counterpart of ``mesh=``)
+    shards every bucket over them as contiguous row ranges
+    (``parallel.mesh.shard_bucket`` and ``sharded_device_step``) and
+    takes the place of ``device``; the result is the same.
 
     Each bucket is one H2D copy, one ``device_step`` on the current
     stream and its D2H copies: the packed array alone in ``host`` mode,
@@ -401,7 +418,9 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     prints on stderr; ``grouped`` is an already-computed
     ``events_grouped`` triple (``--auto-e`` reuses its pass).
     ``on_bucket(cfg, lens, ev_off, ev_pk)`` sees each bucket's device
-    inputs after the H2D, before its ``device_step``."""
+    inputs after the H2D, before its ``device_step``; with ``devices``
+    it sees each shard's, with the per-shard ``cfg``, so it fires once
+    per pileup launch."""
     mode = cov_out or default_cov_out()
     if mode not in COV_OUT_MODES:
         raise ValueError(f"cov_out={mode!r}: must be one of "
@@ -475,29 +494,41 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         w0s = w1s = ev_off_g = None
         cov_flat = np.empty(int(cov_off[-1]), dtype=np.int32)
 
+    n_shards = len(devices) if devices else 1
+    if devices:
+        from raft_tpu_torch.parallel.mesh import (shard_bucket,
+                                                  sharded_device_step)
+        step = sharded_device_step(devices)
     outs = []
     for bk in bucketing.iter_buckets(lens, ev_read, ev_lo, ev_hi, reso,
                                      presorted=True, prebinned=prebinned):
-        cfg = derive_cfg(bk.B, bk.W, bk.E, params, cov_out=mode)
+        if n_shards > 1:
+            bk = shard_bucket(bk, n_shards)
+        # with devices, cfg describes ONE shard
+        cfg = derive_cfg(bk.B // n_shards, bk.W, bk.E // n_shards, params,
+                         cov_out=mode)
         mark("bucket_prep")
-        args = bucket_to_device(bk, cfg, device)
-        mark("h2d")
-        if on_bucket is not None:
-            on_bucket(cfg, *args)
-        dev_out = device_step(*args, cfg=cfg)
-        out = unpack_out(dev_out["packed"].cpu().numpy(), cfg)
-        if "diff8" in dev_out:
-            cov = np.cumsum(dev_out["diff8"].cpu().numpy(), axis=1,
-                            dtype=np.int32)
+        if devices:
+            host = step(*host_inputs(bk, cfg), cfg=cfg, on_bucket=on_bucket)
+        else:
+            args = bucket_to_device(bk, cfg, device)
+            mark("h2d")
+            if on_bucket is not None:
+                on_bucket(cfg, *args)
+            host = {k: v.cpu().numpy()
+                    for k, v in device_step(*args, cfg=cfg).items()}
+        out = unpack_out(host["packed"], cfg)
+        if "diff8" in host:
+            cov = np.cumsum(host["diff8"], axis=1, dtype=np.int32)
             bad = np.nonzero(~out["ok8"])[0]
             if len(bad):
                 # a window gained or lost more than int8 holds, so the
                 # diff wrapped on these rows: rebuild them exactly from
                 # the bucket's own events
-                _host_cov_rows(bk, 1, bad, cov)
+                _host_cov_rows(bk, n_shards, bad, cov)
             out["cov"] = cov
-        elif "cov" in dev_out:
-            out["cov"] = dev_out["cov"].cpu().numpy()
+        elif "cov" in host:
+            out["cov"] = host["cov"]
         mark("step")
         outs.append((bk, out))
 

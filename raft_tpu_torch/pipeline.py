@@ -56,16 +56,21 @@ class TorchRunStats(RunStats):
     the native C++ I/O library was loaded for the parse (without it the
     Python parsers run, with the same results), the ``(B, W, E)`` shape
     of every bucket the torch engine ran, in run order across chunks, and
-    the schedule (``whole`` or ``chunked``) with its number of chunks."""
+    the schedule (``whole`` or ``chunked``) with its number of chunks, and
+    the devices the torch engine ran on (one per shard; none on the oracle
+    engine). Under sharding ``buckets`` holds every shard's per-shard
+    shape, one entry per pileup launch."""
     native_io: bool = False
     buckets: list = dataclasses.field(default_factory=list)
     schedule: str = "whole"
     n_chunks: int = 1
+    devices: list = dataclasses.field(default_factory=list)
 
     def to_json(self) -> dict:
         return {**super().to_json(), "native_io": self.native_io,
                 "buckets": [list(b) for b in self.buckets],
-                "schedule": self.schedule, "n_chunks": self.n_chunks}
+                "schedule": self.schedule, "n_chunks": self.n_chunks,
+                "devices": self.devices}
 
     def on_bucket(self, cfg, *_):
         """``compute_torch(on_bucket=...)`` hook: record the shape."""
@@ -80,6 +85,10 @@ class TorchRunStats(RunStats):
             self.on_bucket(cfg)
             also(cfg, *args)
         return hook
+
+
+def _device_names(device, devices) -> list[str]:
+    return [str(d) for d in (devices or [device])]
 
 
 def load_inputs(read_path: str, paf_path: str, stats: TorchRunStats,
@@ -149,7 +158,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
                  device: str = "cuda", chunk_reads: int | None = None,
                  spill_paf: bool | None = None,
                  cov_out: str | None = None,
-                 on_bucket=None) -> TorchRunStats:
+                 on_bucket=None, devices=None) -> TorchRunStats:
     """Full RAFT run: parse, compute, emit the four output files.
 
     ``gz_out`` writes the outputs BGZF-compressed (``.gz``); ``auto_e``
@@ -170,7 +179,11 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
 
     ``on_bucket(cfg, lens, ev_off, ev_pk)``, where given, sees each torch
     engine bucket's device inputs before its device step, as
-    ``compute_torch``'s hook does, in every chunk."""
+    ``compute_torch``'s hook does, in every chunk.
+
+    ``devices`` (a list of torch devices, ``parallel.mesh.make_devices``)
+    shards each bucket over them, on either schedule, in place of
+    ``device``; the outputs are the same."""
     if engine not in ("torch", "oracle"):
         raise ValueError(f"unknown engine {engine!r}")
     if chunk_reads is None and engine == "torch" and use_native is not False:
@@ -188,7 +201,8 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
                                    strict=strict, verbose=verbose,
                                    spill_paf=spill_paf, gz_out=gz_out,
                                    cov_out=cov_out, auto_e=auto_e,
-                                   device=device, on_bucket=on_bucket)
+                                   device=device, on_bucket=on_bucket,
+                                   devices=devices)
         if st is not None:
             return st
         if verbose:
@@ -242,10 +256,11 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
                 res = from_per_read_lists(store.n_reads, coverages, repeats,
                                           frags, cstats)
             else:
+                stats.devices = _device_names(device, devices)
                 res = compute_torch(
                     store, table, params, strict=strict, cov_out=cov_out,
                     on_cov_events=_on_cov, grouped=grouped, device=device,
-                    on_bucket=stats.bucket_hook(on_bucket))
+                    on_bucket=stats.bucket_hook(on_bucket), devices=devices)
 
         stats.n_reads = store.n_reads
         stats.n_paf_rows = table.n_rows
@@ -303,7 +318,8 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                           spill_paf: bool | None = None,
                           gz_out: bool = False, cov_out: str | None = None,
                           auto_e: bool = False, device: str = "cuda",
-                          on_bucket=None) -> TorchRunStats | None:
+                          on_bucket=None,
+                          devices=None) -> TorchRunStats | None:
     """Streaming schedule: index pass → PAF → per-chunk byte-range load,
     ``compute_torch`` and append-mode emit with global numbering offsets.
 
@@ -320,7 +336,8 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     the chunks whose emits may still be running."""
     (params.replace(est_cov=1) if auto_e else params).validate()
     _validate_inputs(read_path, paf_path)
-    stats = TorchRunStats(schedule="chunked", native_io=True)
+    stats = TorchRunStats(schedule="chunked", native_io=True,
+                          devices=_device_names(device, devices))
     bucket_hook = stats.bucket_hook(on_bucket)
     if spill_paf is None:
         spill_paf = _spill_auto(paf_path)
@@ -557,7 +574,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                 res = compute_torch(store, sub_table, params, strict=strict,
                                     cov_out=cov_out, on_cov_events=_on_cov,
                                     timers_out=eng_timers, device=device,
-                                    on_bucket=bucket_hook)
+                                    on_bucket=bucket_hook, devices=devices)
             if rec is not None:
                 t1 = time.perf_counter()
                 rec["compute_s"] = round(t1 - t_comp, 3)

@@ -123,9 +123,8 @@ def test_pure_python_io_and_oracle_engine(tmp_path, capsys):
                 == (tmp_path / f"port{ext}").read_bytes()), ext
 
 
-@pytest.mark.parametrize("flag", [
-    ["--devices", "2"], ["--pallas"], ["--no-pallas"]],
-    ids=lambda f: "_".join(f))
+@pytest.mark.parametrize("flag", [["--pallas"], ["--no-pallas"]],
+                         ids=lambda f: "_".join(f))
 def test_unsupported_flag_exits_1(tmp_path, capsys, flag):
     reads, paf = datagen.standard_case(seed=15, tmpdir=str(tmp_path),
                                        n_reads=5)
@@ -155,6 +154,37 @@ def test_streaming_cov_out_and_trace_flags_byte_equal(tmp_path, capsys,
         assert (tmp_path / "tr" / TRACE_FILE).stat().st_size > 0
 
 
+@pytest.mark.parametrize("flag", [
+    ["--devices", "4"], ["--devices", "4", "--chunk-reads", "5"],
+    ["--devices", "0"]], ids=lambda f: "_".join(f))
+def test_devices_byte_equal(tmp_path, capsys, flag):
+    """--devices: raft_tpu shards over that many of the 8 virtual CPU
+    devices, the port over as many CPU shards (0: unsharded); files
+    byte-equal and stdout line-equal, whole-file and chunked. The port's
+    stats name one device per shard and list every shard's launch."""
+    reads, paf = datagen.standard_case(seed=18, tmpdir=str(tmp_path),
+                                       n_reads=25)
+    _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf],
+                     extra=[*flag, "--stats-json", "s.json"])
+    import json
+    with open(tmp_path / "s.json") as f:
+        st = json.load(f)
+    n = int(flag[1]) or 1
+    assert st["devices"] == ["cpu"] * n
+    b = st["buckets"]
+    assert b and len(b) % n == 0
+    assert all(b[i] == b[i - i % n] for i in range(len(b)))
+
+
+def test_devices_below_one_exits_1(tmp_path, capsys):
+    reads, paf = datagen.standard_case(seed=18, tmpdir=str(tmp_path),
+                                       n_reads=5)
+    rc, out, err = _run(port_cli.main, [*ARGS, "--devices", "-1", "--device",
+                                        "cpu", reads, paf], tmp_path, capsys)
+    assert rc == 1 and out == ""
+    assert "ERROR, --devices must be at least 1" in err
+
+
 def test_default_device_cuda_without_gpu_exits_1(tmp_path, capsys,
                                                  monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -177,35 +207,46 @@ def test_help_names_the_port_options(capsys):
 
 
 def test_port_run_never_imports_jax(tmp_path):
-    """In a fresh process (this one imported jax in conftest), full CLI
-    runs of the port, whole-file and then chunked under --trace, leave
-    jax out of sys.modules."""
+    """In a fresh process (this one imported jax in conftest), importing
+    raft_tpu_torch.parallel and full CLI runs of the port, whole-file,
+    chunked under --trace and sharded with --devices 2, leave jax and
+    raft_tpu.parallel out of sys.modules."""
     reads, paf = datagen.standard_case(seed=17, tmpdir=str(tmp_path),
                                        n_reads=10)
     chunked = [*ARGS, "-o", "ch", "--chunk-reads", "3", "--trace", "tr",
                "--device", "cpu", reads, paf]
+    sharded = [*ARGS, "-o", "sh", "--devices", "2", "--device", "cpu",
+               reads, paf]
     code = ("import sys\n"
+            "import raft_tpu_torch.parallel\n"
             "from raft_tpu_torch.cli import main\n"
             f"rc = main({[*ARGS, '--device', 'cpu', reads, paf]!r})\n"
             f"rc += main({chunked!r})\n"
-            "print('RC', rc, 'JAX', 'jax' in sys.modules)\n")
+            f"rc += main({sharded!r})\n"
+            "print('RC', rc, 'JAX', 'jax' in sys.modules,\n"
+            "      'raft_tpu.parallel' in sys.modules)\n")
     env = {**os.environ, "PYTHONPATH": ROOT}
     r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.splitlines()[-1] == "RC 0 JAX False"
+    assert r.stdout.splitlines()[-1] == "RC 0 JAX False False"
     assert (tmp_path / "200.reads.fasta").exists()
-    assert ((tmp_path / "ch.reads.fasta").read_bytes()
-            == (tmp_path / "200.reads.fasta").read_bytes())
+    for pre in ("ch", "sh"):
+        assert ((tmp_path / f"{pre}.reads.fasta").read_bytes()
+                == (tmp_path / "200.reads.fasta").read_bytes())
     assert os.listdir(tmp_path / "tr")
 
 
 def test_no_jax_import_in_port_sources():
-    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    """Neither jax nor raft_tpu.parallel (which imports jax) is imported
+    by the port or chip_smoke.py."""
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
+                     r"(import|from)\s+raft_tpu\.parallel\b|"
+                     r"from\s+raft_tpu\s+import\s+parallel\b)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 6
+    assert len(files) >= 9
     for fn in files:
         with open(fn) as f:
             assert not pat.search(f.read()), fn
