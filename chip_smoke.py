@@ -2,14 +2,18 @@
 
     python3 chip_smoke.py               # from the repository root; one card
     python3 chip_smoke.py --multi-card  # two or more cards of one host
+    python3 chip_smoke.py --ab DIR      # this kernel against DIR's; one card
 
 1. Prints the card (torch's name, and nvidia-smi's name, power limit and
    compute mode).
 2. Builds the CUDA pileup kernel from ``raft_tpu_torch/csrc`` with nvcc.
 3. Holds the kernel against its plain PyTorch twin on the card, exactly,
    on synthetic buckets: main-path shapes, a W=64 tail, two multi-stripe
-   ultralong tiers, pack32 and pairs, with empty rows, invalid events and
-   padding; prints both median times per shape.
+   ultralong tiers, a width in each regime whose rows are not 16-byte
+   aligned (the int-store path), pack32 and pairs, with empty rows,
+   invalid events and padding; prints per shape the launch plan, both median times, the
+   bound (the bytes the pileup must move over 3.35 TB/s) and the kernel's
+   share of it.
 4. Checks the CLI's ``--device cuda`` output against the numpy oracle
    engine on a small dataset, then runs the whole-file CLI on the 32k-read
    bench dataset (``gen_dataset``, seed 7) with ``--device cuda`` and
@@ -52,19 +56,19 @@
    cpu``. The four files of all seven runs must be equal: each run's
    outputs are hashed (SHA-256) and deleted, so the disk holds the inputs
    plus one run's outputs (about 6 GB).
-9. Checks that jax was never imported, prints the kernel table as one
-   JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+9. Checks that neither jax nor any ``raft_tpu`` module was imported,
+   prints the kernel table as one JSON line, then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 Every CLI run on the card (steps 4-8) counts its own pileup launches
 (reset just before, read just after) and must have launched the kernel
 once per bucket it reports; it prints its wall, reads/s, stage seconds
 and peak ``torch.cuda.max_memory_allocated``.
 
-Only ``raft_tpu_torch`` is imported. raft_tpu's native I/O Makefile takes
-``CXX``, ``CXXFLAGS`` and ``LDFLAGS`` from the environment; the run drops
-them, so the library is built with the Makefile's own toolchain. The
-environment's ``RAFT_AUTO_CHUNK_BYTES``, ``RAFT_COV_OUT`` and
-``RAFT_CHUNK_TRACE`` are dropped too, so every run takes the defaults.
+Only ``raft_tpu_torch`` is imported; its native I/O builds with fixed
+flags, whatever the environment's ``CXX``, ``CXXFLAGS`` and ``LDFLAGS``.
+The environment's ``RAFT_AUTO_CHUNK_BYTES``, ``RAFT_COV_OUT`` and
+``RAFT_CHUNK_TRACE`` are dropped, so every run takes the defaults.
 
 ``--multi-card`` runs steps 1-2 and then only what needs several cards,
 on the 32k dataset: the CLI with ``--devices N`` over all N cards,
@@ -73,6 +77,12 @@ unsharded run on cuda:0 and rerun untimed with every shard held against
 the plain twin on its own card; then ``run_distributed`` in N processes,
 one card each (``CUDA_VISIBLE_DEVICES``), every launch held as in step
 6c. All byte-equal to the unsharded run; the same two closing lines.
+
+``--ab DIR`` runs steps 1-2, builds the pileup kernel of another tree
+(DIR holds its ``raft_tpu_torch/``, e.g. a ``git archive`` of the parent
+commit) with that tree's own wrapper, and times the two in turns (DIR's,
+this, this, DIR's) on step 3's shapes and on the 32k main path's buckets,
+each held exactly against the plain twin.
 
 Any failed check exits nonzero before the last line. Without a CUDA
 device it exits 2 and prints no result.
@@ -83,6 +93,7 @@ from __future__ import annotations
 import dataclasses
 import filecmp
 import hashlib
+import importlib.util
 import json
 import os
 import statistics
@@ -98,20 +109,26 @@ BIG_CHUNKS = 4           # ceil(100000 / DEFAULT_CHUNK_READS = 32768)
 SPILL_CHUNK = 8192
 N_SHARDS = 4             # shards on one card (step 6b)
 SHARD_CHUNK = 8192
-# native I/O build settings the run leaves to raft_tpu's Makefile, and
 # run-time overrides the run must not inherit
-MAKE_ENV = ("CXX", "CXXFLAGS", "LDFLAGS")
 RAFT_ENV = ("RAFT_AUTO_CHUNK_BYTES", "RAFT_COV_OUT", "RAFT_CHUNK_TRACE")
+# The H100 SXM's peaks at 700 W: HBM bytes/s (NVIDIA's data sheet), and
+# int32 adds/s for the pileup's adds. The data sheet's 67 TFLOP/s float32
+# is 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz; an SM has 64 int32
+# lanes, so 132 x 64 x 1.98 GHz.
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
 BENCH_ARGS = ["-e", "20", "-m", "1.5", "-p", "10000", "-l", "20000",
               "-f", "1000", "-v", "500"]
 OUTS = [".reads.fasta", ".coverage.txt", ".long_repeats.txt",
         ".long_repeats.bed"]
 # (B, W, events per row, wire format): synthetic buckets at the 32k bench
-# dataset's main shapes, a tail, and ultralong tiers of 8 and 128 stripes
+# dataset's main shapes, a tail, two ultralong tiers of few rows, and one
+# width per regime with W % 4 != 0 (rows leave by int stores, not TMA)
 KERNEL_CASES = [
     (4096, 512, 60, "pack32"), (1536, 1024, 120, "pack32"),
     (384, 256, 30, "pack32"), (384, 256, 30, "pairs"), (8, 64, 10, "pack32"),
-    (8, 1 << 16, 3000, "pairs"), (8, 1 << 20, 20000, "pairs")]
+    (8, 1 << 16, 3000, "pairs"), (8, 1 << 20, 20000, "pairs"),
+    (33, 7, 5, "pack32"), (2, 65538, 3000, "pairs")]
 
 
 def check(ok: bool, what: str) -> None:
@@ -161,11 +178,32 @@ def make_case(np, et, params, B, W, per_row, wire, rng):
     return cfg, ev_off, pk
 
 
+def bound(cfg, off_d):
+    """The least milliseconds the card could take for one pileup, and what
+    bounds it: the bytes (the B+1 offsets and the events the rows
+    reference read once, the coverage written once) over HBM_BYTES_S, or
+    the adds (two per referenced event, one per window) over INT32_OPS_S."""
+    off = off_d.cpu()
+    n_ev = max(0, min(int(off[-1]), cfg.E) - max(int(off[0]), 0))
+    nbytes = (4 * (cfg.B + 1) + (4 if cfg.ev_pack == 32 else 8) * n_ev
+              + 4 * cfg.B * cfg.W)
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = (2 * n_ev + cfg.B * cfg.W) / INT32_OPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def plan_text(plan) -> str:
+    return (f"regime {plan.regime} grid {plan.grid[0]}x{plan.grid[1]} "
+            f"block {plan.block} stripe {plan.stripe} smem {plan.smem} "
+            f"{'tma' if plan.tma_store else 'int'}")
+
+
 def hold(torch, pileup_cuda, cfg, off_d, pk_d, label, times=None):
     """Kernel against plain on one bucket's device inputs, exactly; both
-    median times. With a ``times`` dict, a (B, W, E, wire) shape already
-    in it on the same device is compared but not timed again, and prints
-    nothing. Returns the table row."""
+    median times, the launch plan and the bound. With a ``times`` dict, a
+    (B, W, E, wire) shape already in it on the same device is compared
+    but not timed again, and prints nothing. Returns the table row."""
     wire = "pairs" if cfg.ev_pack == 0 else "pack32"
     dev = off_d.device
     with torch.cuda.device(dev):  # synchronize and time on the tensors' card
@@ -177,6 +215,7 @@ def hold(torch, pileup_cuda, cfg, off_d, pk_d, label, times=None):
               f"{label}: kernel != plain at B={cfg.B} W={cfg.W} {wire} on "
               f"{dev} (max |err| {err})")
         key = (cfg.B, cfg.W, cfg.E, wire, str(dev))
+        bms, by = bound(cfg, off_d)
         if times is not None and key in times:
             ms, plain = times[key]
         else:
@@ -186,11 +225,15 @@ def hold(torch, pileup_cuda, cfg, off_d, pk_d, label, times=None):
                 torch, lambda: pileup_cuda.pileup_torch(off_d, pk_d, cfg))
             if times is not None:
                 times[key] = ms, plain
+            plan = pileup_cuda.launch_plan(
+                cfg.B, cfg.W, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
             print(f"{label} B={cfg.B:5d} W={cfg.W:8d} E={cfg.E:8d} "
-                  f"{wire:6s} {dev} exact  kernel {ms:.4f} ms  plain "
-                  f"{plain:.4f} ms  ratio {plain / ms:.2f}x")
+                  f"{wire:6s} {dev} exact  {plan_text(plan)}  kernel "
+                  f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.5f} ms "
+                  f"({by})  share {bms / ms:.1%}")
     return dict(B=cfg.B, W=cfg.W, E=cfg.E, wire=wire, max_abs_err=err,
-                ms=ms, plain_ms=plain)
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
 def kernel_phase(torch, np, et, pileup_cuda, params):
@@ -206,18 +249,82 @@ def kernel_phase(torch, np, et, pileup_cuda, params):
     return rows
 
 
-def real_bucket_phase(torch, et, pileup_cuda, pipeline, params, reads, paf):
-    """Kernel against plain on every bucket of the dataset, as
-    ``compute_torch`` hands it to the device; one row per bucket."""
-    rows = []
+def main_path_buckets(torch, et, pipeline, params, reads, paf):
+    """Every bucket's device inputs of the dataset, as ``compute_torch``
+    hands them to the device: (cfg, ev_off, ev_pk) on cuda:0."""
+    out = []
     stats = pipeline.TorchRunStats()
     store, table = pipeline.load_inputs(reads, paf, stats)
     params = params.replace(real_reads=store.real_reads,
                             symmetric_overlaps=table.symmetric)
     et.compute_torch(store, table, params, device="cuda",
-                     on_bucket=lambda cfg, lens, off, pk: rows.append(
-                         hold(torch, pileup_cuda, cfg, off, pk, "bucket")))
-    return rows
+                     on_bucket=lambda cfg, lens, off, pk: out.append(
+                         (cfg, off.clone(), pk.clone())))
+    return out
+
+
+def load_base(root):
+    """The pileup wrapper of another tree, under its own module name, so
+    that it builds and loads that tree's kernel library from that tree."""
+    path = os.path.join(root, "raft_tpu_torch", "ops", "pileup_cuda.py")
+    spec = importlib.util.spec_from_file_location("base_pileup_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, work,
+             gen_dataset):
+    """``--ab``: the base tree's kernel against this one, in turns (base,
+    this, this, base), on the synthetic shapes and the 32k main path's
+    buckets, each exact against the plain twin."""
+    rng = np.random.default_rng(7)
+    cases = []
+    for B, W, per_row, wire in KERNEL_CASES:
+        cfg, ev_off, pk = make_case(np, et, params, B, W, per_row, wire, rng)
+        cases.append(("synthetic", cfg, torch.from_numpy(ev_off).cuda(),
+                      torch.from_numpy(np.ascontiguousarray(pk)).cuda()))
+    reads, paf = gen_dataset(os.path.join(work, "bench"), n_reads=N_READS,
+                             n_overlaps=N_READS * 30, est_cov=20, seed=7)
+    cases += [("32k bucket", *c) for c in main_path_buckets(
+        torch, et, pipeline, params, reads, paf)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    print(f"launch floor (one 4-byte fill kernel, the same timing): "
+          f"{device_ms(torch, one.zero_):.4f} ms")
+    tot = {"base": 0.0, "this": 0.0, "bound": 0.0}
+    for label, cfg, off, pk in cases:
+        want = pileup_cuda.pileup_torch(off, pk, cfg)
+        for name, mod in (("base", base), ("this", pileup_cuda)):
+            check(torch.equal(mod.pileup(off, pk, cfg), want),
+                  f"--ab {name}: kernel != plain at B={cfg.B} W={cfg.W}")
+        t = [device_ms(torch, lambda m=m: m.pileup(off, pk, cfg))
+             for m in (base, pileup_cuda, pileup_cuda, base)]
+        bms, by = bound(cfg, off)
+        plan = pileup_cuda.launch_plan(cfg.B, cfg.W, sms)
+        print(f"ab {label} B={cfg.B} W={cfg.W} E={cfg.E} "
+              f"{'pairs' if cfg.ev_pack == 0 else 'pack32'} "
+              f"{plan_text(plan)}: base {t[0]:.4f} / {t[3]:.4f} ms, this "
+              f"{t[1]:.4f} / {t[2]:.4f} ms, bound {bms:.5f} ms ({by}), "
+              f"share base {bms / min(t[0], t[3]):.1%} this "
+              f"{bms / min(t[1], t[2]):.1%}")
+        if label == "32k bucket":
+            tot["base"] += statistics.median([t[0], t[3]])
+            tot["this"] += statistics.median([t[1], t[2]])
+            tot["bound"] += bms
+    print(f"ab the 32k main path's {len(cases) - len(KERNEL_CASES)} "
+          f"buckets, summed medians: base {tot['base']:.4f} ms, this "
+          f"{tot['this']:.4f} ms, bound {tot['bound']:.4f} ms, share base "
+          f"{tot['bound'] / tot['base']:.1%} this "
+          f"{tot['bound'] / tot['this']:.1%}")
+
+
+def real_bucket_phase(torch, et, pileup_cuda, pipeline, params, reads, paf):
+    """Kernel against plain on every bucket of the dataset, as
+    ``compute_torch`` hands it to the device; one row per bucket."""
+    return [hold(torch, pileup_cuda, cfg, off, pk, "bucket")
+            for cfg, off, pk in main_path_buckets(torch, et, pipeline,
+                                                  params, reads, paf)]
 
 
 def run_cli(cli, args, label):
@@ -391,7 +498,8 @@ def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
 
 
 # One rank of step 6c (and of --multi-card) as one JSON line: its wall,
-# its pileup launch count, whether jax was imported, and a row per pileup
+# its pileup launch count, the jax and raft_tpu modules it imported (none
+# may be), and a row per pileup
 # call of the engine: that call's (B, W, E), held against the plain twin on
 # the same device inputs. The launch count rises only in the real wrapper.
 RANK_CODE = """\
@@ -420,7 +528,8 @@ if {device!r} == "cuda":
 print(json.dumps({{"rank": {rank}, "device": {device!r},
                   "wall": time.perf_counter() - t0,
                   "launches": pileup_cuda.launches, "held": held,
-                  "jax": "jax" in sys.modules}}))
+                  "foreign": sorted(m for m in sys.modules if m.split(".")[0]
+                                    in ("jax", "raft_tpu"))}}))
 """
 
 
@@ -468,7 +577,7 @@ def multi_process_phase(inputs, prefix, want, devs, visible=None):
         check(p.returncode == 0, f"{label}: exit {p.returncode}\n"
               f"{err[-3000:]}")
         r = json.loads(out.splitlines()[-1])
-        check(not r["jax"], f"{label} imported jax")
+        check(not r["foreign"], f"{label} imported {r['foreign']}")
         held = r["held"]
         check(len(held) > 0
               and r["launches"] == (len(held) if r_dev == "cuda" else 0),
@@ -540,12 +649,14 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    if argv not in ([], ["--multi-card"]):
-        print("usage: python3 chip_smoke.py [--multi-card]", file=sys.stderr)
+    if not (argv in ([], ["--multi-card"])
+            or (len(argv) == 2 and argv[0] == "--ab")):
+        print("usage: python3 chip_smoke.py [--multi-card | --ab DIR]",
+              file=sys.stderr)
         return 2
     import numpy as np
 
-    for k in MAKE_ENV + RAFT_ENV:
+    for k in RAFT_ENV:
         os.environ.pop(k, None)
     from raft_tpu_torch import cli, gen_dataset, pipeline, profiling
     from raft_tpu_torch import engine_torch as et
@@ -572,9 +683,21 @@ def main(argv: list[str]) -> int:
     so, log = pileup_cuda.build_kernels(force=True)
     print(f"build: {time.perf_counter() - t0:.2f} s -> {so}")
     for line in log.splitlines():
-        if "ptxas" in line or "error" in line.lower():
+        if "ptxas" in line or "spill" in line or "error" in line.lower():
             print(f"  {line.strip()}")
 
+    params = cli.parse_args(BENCH_ARGS + ["reads", "paf"])[0]
+    if argv and argv[0] == "--ab":
+        base = load_base(argv[1])
+        so, log = base.build_kernels(force=True)
+        print(f"base build -> {so}")
+        for line in log.splitlines():
+            if "ptxas" in line or "spill" in line or "error" in line.lower():
+                print(f"  {line.strip()}")
+        with tempfile.TemporaryDirectory(prefix="raft_smoke_") as work:
+            ab_phase(torch, np, et, pileup_cuda, pipeline, params, base,
+                     work, gen_dataset)
+        return report(torch, name, None, {}, [], [])
     if argv:
         with tempfile.TemporaryDirectory(prefix="raft_smoke_") as work:
             by_path, rows, label, all_rows = multi_card(
@@ -582,7 +705,6 @@ def main(argv: list[str]) -> int:
         return report(torch, name, label, by_path, rows, all_rows)
 
     # 3. kernel vs plain on the card, synthetic buckets
-    params = cli.parse_args(BENCH_ARGS + ["reads", "paf"])[0]
     kcases = kernel_phase(torch, np, et, pileup_cuda, params)
 
     os.environ["RAFT_TIMERS"] = "1"
@@ -652,8 +774,10 @@ def main(argv: list[str]) -> int:
               "the buckets held against plain are not the cuda run's")
         kms = sum(r["ms"] for r in real)
         pms = sum(r["plain_ms"] for r in real)
+        bms = sum(r["bound_ms"] for r in real)
         print(f"pileup over the {len(real)} buckets of the main path: "
-              f"kernel {kms:.4f} ms, plain {pms:.4f} ms, exact on all")
+              f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
+              f"ms, share {bms / kms:.1%}, exact on all")
         by_path = {"32k whole-file": launches}
 
         # 5. coverage return modes: byte-equal to the host run
@@ -705,9 +829,11 @@ def main(argv: list[str]) -> int:
         by_path["small --trace"] = st["launches"]
         with open(os.path.join(tdir, profiling.TRACE_FILE)) as f:
             events = json.load(f)["traceEvents"]
-        kev = [e for e in events if "pileup_kernel" in e.get("name", "")]
+        kev = [e for e in events
+               if any(k in e.get("name", "")
+                      for k in pileup_cuda.KERNEL_NAMES)]
         check(len(kev) >= st["launches"],
-              f"--trace: {len(kev)} pileup_kernel events for "
+              f"--trace: {len(kev)} pileup kernel events for "
               f"{st['launches']} launches")
         print(f"--trace: {len(events)} events, {len(kev)} name the "
               f"kernel ({kev[0]['name']}), "
@@ -792,17 +918,27 @@ def main(argv: list[str]) -> int:
 def report(torch, name, main_label, by_path, main_rows, all_rows) -> int:
     """The closing lines: the kernel table (launches of the main path's
     run and of every path, the largest error of every comparison, the
-    kernel and plain milliseconds summed over the main path's buckets),
-    then the result."""
-    check("jax" not in sys.modules, "jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "pileup", "route": "cuda",
-        "source": "raft_tpu_torch/csrc/pileup.cu",
-        "replaces": "raft_tpu/ops/pileup_pallas.py:39",
-        "launches": by_path[main_label], "launches_by_path": by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in all_rows),
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows)}]}))
+    kernel, plain and bound milliseconds summed over the main path's
+    buckets; no single PyTorch call computes windowed interval coverage,
+    so ``library_ms`` is null), then the result. ``--ab`` has no main
+    path run and prints no kernel table."""
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "raft_tpu"))
+    check(not foreign, f"imported {foreign}")
+    if main_label is not None:
+        print(json.dumps({"kernels": [{
+            "name": "pileup", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/pileup.cu",
+            "replaces": "raft_tpu/ops/pileup_pallas.py:39",
+            "launches": by_path[main_label], "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in all_rows),
+            "ms": sum(r["ms"] for r in main_rows),
+            "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(r["bound_ms"] for r in main_rows),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in main_rows)
+                         else "operations"),
+            "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

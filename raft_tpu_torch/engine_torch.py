@@ -37,11 +37,11 @@ import time
 import numpy as np
 import torch
 
-from raft_tpu import bucketing
-from raft_tpu.io.fasta import ReadStore
-from raft_tpu.io.paf import OverlapTable
-from raft_tpu.params import AlgoParams
-from raft_tpu.result import ComputeResult
+from raft_tpu_torch import bucketing
+from raft_tpu_torch.io.fasta import ReadStore
+from raft_tpu_torch.io.paf import OverlapTable
+from raft_tpu_torch.params import AlgoParams
+from raft_tpu_torch.result import ComputeResult
 from raft_tpu_torch.ops.pileup_cuda import decode_events, ev_bits_w0, pileup
 
 I32 = torch.int32
@@ -397,7 +397,7 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
                   strict: bool = True, cov_out: str | None = None,
                   on_cov_events=None,
                   timers_out: dict | None = None,
-                  grouped=None, device="cpu",
+                  grouped=None, device="cuda",
                   on_bucket=None, devices=None) -> ComputeResult:
     """Torch engine: buckets through ``device_step`` on ``device``, flat
     ComputeResult out — the counterpart of ``engine_jax.compute_jax``.

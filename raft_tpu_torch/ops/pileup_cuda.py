@@ -16,6 +16,12 @@ For a CPU tensor the wrapper runs ``pileup_torch``; for a CUDA tensor it
 launches the kernel or raises — there is no fallback. The kernel is built
 with ``nvcc`` from ``csrc/*.cu`` into ``_build/`` at first use, and again
 whenever a source is newer than the library.
+
+``launch_plan`` picks the kernel's regime and launch shape from (B, W) in
+Python, where the CPU tests can check it: warp-per-row blocks for rows
+whose double-buffered shared-memory rows fit (every width of the bench
+paths), block-per-(row, stripe) for wider ones. ``csrc/pileup.cu`` says
+why.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
@@ -40,6 +46,24 @@ LIB_NAME = "libraft_kernels.so"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the CUDA toolkit's install prefix
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# The kernels' names as a profiler trace shows them.
+KERNEL_NAMES = ("pileup_rows", "pileup_stripes")
+
+# Launch plan constants (sm_90). A block may opt into 232,448 bytes of
+# dynamic shared memory; an SM holds 233,472, less 1 KB reserved per block.
+SMEM_MAX = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1024
+H100_SMS = 132
+R1_WARPS = 8           # regime 1: warps (rows in flight) per block
+R1_BLOCKS_PER_SM = 8   # regime 1: grid cap, blocks per SM (at most 64 warps)
+R2_FEW_ROWS_W = 2048   # B <= R1_WARPS rows this wide take regime 2
+R2_THREADS = 1024      # regime 2: threads per (row, stripe) block
+R2_STATIC_SMEM = 128   # regime 2: its static shared memory (32 warp sums)
+R2_ALIGN = 32 * 4      # a stripe gives each warp a 16-byte aligned share
+STRIPE = 24576         # regime 2: most windows per block (best at W=2^20)
+MIN_STRIPE = 4096      # regime 2: fewest windows per block of a wide row
 
 # Kernel launches (CUDA tensors only); a caller resets it to 0 before the
 # run it wants to count.
@@ -98,11 +122,55 @@ def _get_lib():
             so, _ = build_kernels()
             lib = ctypes.CDLL(so)
             lib.raft_pileup.argtypes = ([ctypes.c_void_p] * 3
-                                        + [ctypes.c_int] * 5
+                                        + [ctypes.c_int] * 12
                                         + [ctypes.c_void_p])
             lib.raft_pileup.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+class LaunchPlan(NamedTuple):
+    """How ``raft_pileup`` launches: ``regime`` 1 (a warp per row, blocks
+    of ``R1_WARPS`` warps looping over rows) or 2 (a block per (row,
+    stripe of ``stripe`` windows)); ``grid`` (x, y); threads per
+    ``block``; dynamic shared memory ``smem`` bytes; ``tma_store``: rows
+    leave by TMA bulk store (W % 4 == 0, so rows are 16-byte aligned),
+    else by coalesced int stores."""
+    regime: int
+    grid: tuple[int, int]
+    block: int
+    stripe: int
+    smem: int
+    tma_store: bool
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def launch_plan(B: int, W: int, sms: int = H100_SMS) -> LaunchPlan:
+    """The launch of one bucket ``[B, W]`` on a card with ``sms`` SMs.
+
+    Regime 1 whenever ``R1_WARPS`` double-buffered rows fit in a block's
+    shared memory (W <= 2048 among powers of two), except for at most
+    ``R1_WARPS`` rows of ``R2_FEW_ROWS_W`` windows or more, which one warp
+    per row scans too slowly. Its grid is the rows over ``R1_WARPS``,
+    capped at ``R1_BLOCKS_PER_SM`` resident blocks per SM. Else regime 2,
+    a block per (row, stripe): the stripe is at most ``STRIPE`` windows,
+    and narrower (down to ``MIN_STRIPE``) when that many would leave SMs
+    without a block. Stripes are multiples of ``R2_ALIGN``."""
+    tma = W % 4 == 0
+    stride = (W + 4) // 4 * 4  # ints per row buffer: W, the sink, alignment
+    smem = 2 * R1_WARPS * stride * 4
+    if smem <= SMEM_MAX and not (B <= R1_WARPS and W >= R2_FEW_ROWS_W):
+        fit = min(SMEM_PER_SM // (smem + SMEM_RESERVED), 64 // R1_WARPS)
+        grid = min(-(-B // R1_WARPS), sms * min(R1_BLOCKS_PER_SM, fit))
+        return LaunchPlan(1, (grid, 1), 32 * R1_WARPS, W, smem, tma)
+    s = min(STRIPE, _round_up(W, R2_ALIGN))
+    per_row = -(-sms // max(B, 1))  # stripes per row: a block on every SM
+    if -(-W // s) < per_row:
+        s = min(max(MIN_STRIPE, _round_up(-(-W // per_row), R2_ALIGN)), s)
+    return LaunchPlan(2, (B, -(-W // s)), R2_THREADS, s, (s + 4) * 4, tma)
 
 
 def ev_bits_w0(W: int) -> int:
@@ -185,6 +253,8 @@ def pileup(ev_off, ev_pk, cfg: StaticCfg):
     pairs = cfg.ev_pack == 0
     if pairs and ev_pk.data_ptr() % 8:
         raise ValueError("ev_pk pairs must be 8-byte aligned")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(cfg.B, cfg.W, sms)
     k = 0 if pairs else ev_bits_w0(cfg.W)
     lib = _get_lib()
     cov = torch.empty((cfg.B, cfg.W), dtype=torch.int32, device=dev)
@@ -192,7 +262,9 @@ def pileup(ev_off, ev_pk, cfg: StaticCfg):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.raft_pileup(ev_off.data_ptr(), ev_pk.data_ptr(),
                               cov.data_ptr(), cfg.B, cfg.W, cfg.E, k,
-                              int(pairs), stream)
+                              int(pairs), plan.regime, *plan.grid,
+                              plan.block, plan.stripe, plan.smem,
+                              int(plan.tma_store), stream)
     if err:
         raise RuntimeError(f"pileup kernel launch failed: CUDA error {err}")
     launches += 1

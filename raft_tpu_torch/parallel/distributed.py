@@ -24,7 +24,7 @@ unlike NCCL, lets two ranks share one card.
 
 The planning and emit helpers (``shard_ranges`` … ``_slice_table``) are
 ``raft_tpu``'s, copied unchanged: that module cannot be imported without
-jax.
+jax. A host's event view is ``pipeline._EventTable``.
 """
 
 from __future__ import annotations
@@ -135,8 +135,9 @@ def run_distributed(read_path: str, paf_path: str, params,
 def _run(read_path, paf_path, params, strict, devices, H: int,
          h: int) -> None:
     """Byte-range ingest of this host's read range, compute, emit."""
-    from raft_tpu.io import native
     from raft_tpu_torch.engine_torch import compute_torch
+    from raft_tpu_torch.io import native
+    from raft_tpu_torch.pipeline import _EventTable
 
     idx = native.index_reads(read_path)
     if idx is not None and idx["n"] > 0:
@@ -168,16 +169,16 @@ def _run(read_path, paf_path, params, strict, devices, H: int,
             if not params.real_reads:
                 native.attach_sim_meta(sub_store)
             er, el, eh = bins.events_for_bin(h)
-            sub_table = _EventView(er - lo, el, eh, symmetric)
+            sub_table = _EventTable(er - lo, el, eh, symmetric)
         else:  # more hosts than reads: empty shard
             sub_store = _empty_store(params.real_reads)
             z = np.empty(0, dtype=np.int32)
-            sub_table = _EventView(z, z.copy(), z.copy(), symmetric)
+            sub_table = _EventTable(z, z.copy(), z.copy(), symmetric)
     finally:
         bins.close()
 
     res = compute_torch(sub_store, sub_table, params, strict=False,
-                        devices=devices)
+                        device=devices[0], devices=devices)
     _allgather_and_emit(params, sub_store, res, h, H, lo)
 
 
@@ -185,8 +186,8 @@ def _run_distributed_wholeparse(read_path: str, paf_path: str, params,
                                 H: int, h: int, devices) -> None:
     """Fallback: every host parses everything; the owned-range restriction
     keeps device + emit work local."""
-    from raft_tpu.io.fasta import load_reads
-    from raft_tpu.io.paf import load_paf
+    from raft_tpu_torch.io.fasta import load_reads
+    from raft_tpu_torch.io.paf import load_paf
     from raft_tpu_torch.engine_torch import compute_torch
 
     store = load_reads(read_path)
@@ -201,7 +202,7 @@ def _run_distributed_wholeparse(read_path: str, paf_path: str, params,
 
     # strict=False: sliced tables deliberately carry FOREIGN partner ids
     res = compute_torch(sub_store, sub_table, params, strict=False,
-                        devices=devices)
+                        device=devices[0], devices=devices)
     _allgather_and_emit(params, sub_store, res, h, H, lo)
 
 
@@ -226,23 +227,8 @@ def _allgather_and_emit(params, sub_store, res, h: int, H: int,
             concat_shards(prefix, ext, H, remove=True)
 
 
-class _EventView:
-    """Pre-restricted, id-rebased event table (OverlapTable.events()
-    contract) for a host's owned read range."""
-
-    def __init__(self, ev_read, ev_lo, ev_hi, symmetric):
-        self._ev = (np.ascontiguousarray(ev_read, dtype=np.int32),
-                    np.ascontiguousarray(ev_lo, dtype=np.int32),
-                    np.ascontiguousarray(ev_hi, dtype=np.int32))
-        self.symmetric = symmetric
-        self.n_rows = len(ev_read)
-
-    def events(self, n_reads, strict=True):
-        return self._ev
-
-
 def _empty_store(real_reads: bool):
-    from raft_tpu.io.fasta import ReadStore
+    from raft_tpu_torch.io.fasta import ReadStore
     return ReadStore(names=[], seq_blob=b"",
                      seq_off=np.zeros(1, dtype=np.int64),
                      lens=np.empty(0, dtype=np.int32),
@@ -254,7 +240,7 @@ def emit_host_shard(prefix: str, sub_store, params, res, host: int,
                     first_read_index: int) -> None:
     """Write one host's slice of all four outputs as shard files whose
     byte concatenation equals the single-host output."""
-    from raft_tpu import emit
+    from raft_tpu_torch import emit
     emit.write_fragments_fasta(
         shard_path(prefix, ".reads.fasta", host, n_hosts),
         sub_store, params, res, first_read_num=first_read_num)

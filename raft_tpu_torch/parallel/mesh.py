@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import torch
 
-from raft_tpu import bucketing
+from raft_tpu_torch import bucketing
 from raft_tpu_torch.engine_torch import StaticCfg, device_step, rep_len_sum_col
 
 

@@ -14,10 +14,11 @@ schedules:
 Outputs are byte-identical between the two and to ``raft_tpu``. The
 framework-free helpers (run stats, stage timers, the auto-chunk gate, the
 event-table views, ``--auto-e`` folding, the ``-e`` advisory, input
-checks, the oracle engine), the native I/O and the emitters are imported
-from ``raft_tpu`` unchanged; ``raft_tpu.io.native`` builds its library at
-first use. All device work runs on the calling thread; the load and emit
-pools are host-only.
+checks, the oracle engine) are copies of ``raft_tpu.pipeline``'s, and the
+native I/O and the emitters are the port's own copies
+(``raft_tpu_torch.io``, ``raft_tpu_torch.emit``);
+``raft_tpu_torch.io.native`` builds its library at first use. All device
+work runs on the calling thread; the load and emit pools are host-only.
 """
 
 from __future__ import annotations
@@ -33,21 +34,280 @@ from collections import deque
 
 import numpy as np
 
-from raft_tpu import emit
-from raft_tpu.io import native
-from raft_tpu.io.fasta import (ReadStore, load_reads, parse_sim_align,
-                               parse_sim_chr, parse_sim_end_pos,
-                               parse_sim_start_pos)
-from raft_tpu.io.paf import OverlapTable, load_paf
-from raft_tpu.params import AlgoParams
-from raft_tpu.pipeline import (RunStats, _apply_auto_e, _auto_chunk_reads,
-                               _est_cov_hint, _EventTable,
-                               _GroupedEventTable, _sum_output_bytes, _Timer,
-                               _validate_inputs, compute_oracle)
+from raft_tpu_torch import emit
 from raft_tpu_torch.engine_torch import compute_torch
+from raft_tpu_torch.io import native
+from raft_tpu_torch.io.fasta import (ReadStore, load_reads, parse_sim_align,
+                                     parse_sim_chr, parse_sim_end_pos,
+                                     parse_sim_start_pos)
+from raft_tpu_torch.io.paf import OverlapTable, load_paf
+from raft_tpu_torch.ops import oracle
+from raft_tpu_torch.params import AlgoParams
 
 OUT_NAMES = (".reads.fasta", ".coverage.txt", ".long_repeats.txt",
              ".long_repeats.bed")
+
+
+# ---------------------------------------------------------------------------
+# Copied from raft_tpu/pipeline.py unchanged (import paths apart): run
+# stats, stage timers, --auto-e folding, the -e advisory, input checks, the
+# oracle engine, the auto-chunk gate and the event-table views.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RunStats:
+    n_reads: int = 0
+    n_paf_rows: int = 0
+    n_fragments: int = 0
+    total_coverage: int = 0
+    total_windows: int = 0
+    total_repeat_length: int = 0
+    total_read_length: int = 0
+    symmetric: bool = False
+    stage_seconds: dict = dataclasses.field(default_factory=dict)
+    emit_bytes: int = 0  # total bytes of the four output files
+
+    @property
+    def coverage_per_window(self) -> float:
+        return self.total_coverage / self.total_windows if self.total_windows else 0.0
+
+    @property
+    def fraction_repeat(self) -> float:
+        return (self.total_repeat_length / self.total_read_length
+                if self.total_read_length else 0.0)
+
+    def to_json(self) -> dict:
+        return {
+            "n_reads": self.n_reads,
+            "n_paf_rows": self.n_paf_rows,
+            "n_fragments": self.n_fragments,
+            "total_coverage": self.total_coverage,
+            "total_windows": self.total_windows,
+            "total_repeat_length": self.total_repeat_length,
+            "total_read_length": self.total_read_length,
+            "coverage_per_window": self.coverage_per_window,
+            "fraction_repeat": self.fraction_repeat,
+            "symmetric_overlaps": self.symmetric,
+            "stage_seconds": dict(self.stage_seconds),
+            "peak_rss_mb": self.peak_rss_mb,
+            # emit throughput telemetry (VERDICT r2 weak 7): lets a future
+            # round tell an emit-policy regression from VM CPU steal
+            "emit_bytes": self.emit_bytes,
+            "emit_mb_per_s": round(
+                self.emit_bytes / 1e6 / self.stage_seconds["emit"], 1)
+            if self.stage_seconds.get("emit") else 0.0,
+        }
+
+    @property
+    def peak_rss_mb(self) -> float:
+        import resource
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+class _Timer:
+    def __init__(self, stats: RunStats, name: str):
+        self.stats, self.name = stats, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *a):
+        self.stats.stage_seconds[self.name] = (
+            self.stats.stage_seconds.get(self.name, 0.0)
+            + time.perf_counter() - self.t0)
+
+
+def _apply_auto_e(params: AlgoParams, info: dict) -> AlgoParams:
+    """Fold an --auto-e estimate into the params; stderr reporting.
+
+    The estimate replaces any supplied ``-e`` (reported when they
+    disagree). A no-signal input (no covered window) is an error: the
+    estimator cannot invent a threshold, and silently running with a
+    default would produce garbage fragmentation."""
+    est = info["est_cov"]
+    if est <= 0:
+        raise ValueError(
+            "--auto-e: no covered window in the input (every overlap "
+            "interval empty or out of range) — est_cov cannot be "
+            "estimated; supply -e explicitly")
+    from raft_tpu_torch.auto_e import SAFETY_MUL
+    msg = (f"INFO, --auto-e estimated est_cov = {est} (median per-window "
+           f"coverage {info['refined_median']}, x{SAFETY_MUL:g} safety "
+           f"bias, {info['nonzero_windows']} covered windows)")
+    if params.est_cov > 0 and params.est_cov != est:
+        msg += f"; ignoring supplied -e {params.est_cov}"
+    print(msg, file=sys.stderr)
+    return params.replace(est_cov=est)
+
+
+def _est_cov_hint(stats: "RunStats", params: AlgoParams) -> None:
+    """stderr advisory when ``-e`` looks mis-specified.
+
+    est_cov is the one knob users must compute themselves
+    (total_bases/genome_size, reference README:22-26) and the r4
+    sensitivity sweep (EVAL.md) showed the failure mode is severe and
+    asymmetric: under-estimates collapse repeat precision ~10x and
+    suppress fragmentation, over-estimates >~2x cost recall. The
+    reference prints the observed/supplied ratio but never interprets
+    it; we add the interpretation on STDERR (stdout stays line-identical
+    to the reference). RAFT_NO_HINTS=1 disables."""
+    if os.environ.get("RAFT_NO_HINTS"):
+        return
+    if not stats.total_windows or params.est_cov <= 0:
+        return
+    ratio = stats.coverage_per_window / params.est_cov
+    # Thresholds calibrated to the r4 sweep (EVAL.md, VERDICT r4 item
+    # 6): a 0.75x under-estimate (observed/supplied ~= 1.33) ALREADY
+    # halves flank-tolerant precision (0.995 -> 0.40 at 2 Mbp, 0.11 at
+    # 10 Mbp), so the under-estimate hint must fire before 1.33, not at
+    # the old 1.5. Over-estimates are harmless at 1.5x (ratio 0.67) and
+    # cost recall at 2x (ratio 0.5, recall 0.82-0.98), so warn from
+    # ratio < 0.6 — between the last-known-safe and first-damaged
+    # points.
+    if ratio > 1.25:
+        print(f"HINT: observed coverage per window ({ratio:.2f}x the "
+              f"supplied -e {params.est_cov}) suggests est_cov is "
+              "UNDER-estimated; a 0.75x under-estimate already halves "
+              "repeat precision and suppresses fragmentation (EVAL.md "
+              "sweep). Consider -e nearer "
+              f"{stats.coverage_per_window:.0f}, or --auto-e.",
+              file=sys.stderr)
+    elif ratio < 0.6:
+        print(f"HINT: observed coverage per window is only {ratio:.2f}x "
+              f"the supplied -e {params.est_cov}; a 2x over-estimate "
+              "makes true repeats miss the high-coverage threshold "
+              "(recall 1.0 -> 0.82-0.98, EVAL.md sweep). Consider -e "
+              f"nearer {stats.coverage_per_window:.0f}, or --auto-e.",
+              file=sys.stderr)
+
+
+def _sum_output_bytes(prefix: str, sfx: str) -> int:
+    tot = 0
+    for name in (".coverage.txt", ".long_repeats.txt",
+                 ".long_repeats.bed", ".reads.fasta"):
+        try:
+            tot += os.path.getsize(prefix + name + sfx)
+        except OSError:
+            pass
+    return tot
+
+
+def _validate_inputs(read_path: str, paf_path: str) -> None:
+    """Reference check: exists + non-empty or exit (chop.hpp:336-349)."""
+    for p in (read_path, paf_path):
+        if not os.path.exists(p) or os.path.getsize(p) == 0:
+            print(f"ERROR, break_long_reads(), {p} input file either does "
+                  "not exist or is empty")
+            raise SystemExit(1)
+
+
+def compute_oracle(store: ReadStore, table: OverlapTable,
+                   params: AlgoParams, strict: bool = True):
+    """Reference-exact per-read compute (numpy oracle engine).
+
+    Returns (coverages, repeats_per_read, frags_per_read, stats_partial).
+    """
+    n = store.n_reads
+    ev_read, ev_lo, ev_hi = table.events(n, strict=strict)
+    order = np.argsort(ev_read, kind="stable")
+    ev_read = ev_read[order]
+    ev_lo = ev_lo[order]
+    ev_hi = ev_hi[order]
+    bounds = np.searchsorted(ev_read, np.arange(n + 1))
+
+    coverages = []
+    repeats_per_read = []
+    frags_per_read = []
+    stats = RunStats()
+    hc = params.high_cov
+    for i in range(n):
+        length = int(store.lens[i])
+        lo = ev_lo[bounds[i]:bounds[i + 1]]
+        hi = ev_hi[bounds[i]:bounds[i + 1]]
+        cov = oracle.coverage_one_read(length, params.reso, lo, hi,
+                                       strict=strict)
+        rep = oracle.repeats_one_read(cov, length, params.reso, hc,
+                                      params.repeat_length,
+                                      params.flanking_length)
+        stars = oracle.markers_one_read(length, params.interval_length)
+        finals = oracle.surviving_markers(stars, rep.intervals)
+        frags = oracle.chop_one_read(length, finals, params.read_length,
+                                     params.interval_length,
+                                     params.overlap_length)
+        coverages.append(cov)
+        repeats_per_read.append(rep.intervals)
+        frags_per_read.append(frags)
+        stats.total_coverage += int(cov.sum())
+        stats.total_windows += len(cov)
+        stats.total_repeat_length += rep.repeat_length_sum
+        stats.total_read_length += length
+    return coverages, repeats_per_read, frags_per_read, stats
+
+
+DEFAULT_CHUNK_READS = 32768  # chunk size auto-streaming picks (the 512k
+#                              scale proof's measured-good size)
+
+
+def _auto_chunk_reads(read_path: str, paf_path: str) -> int:
+    """Auto-streaming gate for whole-file invocations (0 = stay
+    whole-file). Size-based: the decision must happen before any parse,
+    and input bytes are the resource the chunked schedule manages. The
+    2 GB default keeps bench-scale runs (where chunking measured slightly
+    slower — smaller batches cost more than the overlap saves) on the
+    whole-file path."""
+    try:
+        thr = float(os.environ.get("RAFT_AUTO_CHUNK_BYTES", 2e9))
+    except ValueError:
+        print("raft: ignoring malformed RAFT_AUTO_CHUNK_BYTES "
+              f"({os.environ['RAFT_AUTO_CHUNK_BYTES']!r}); using 2e9",
+              file=sys.stderr)
+        thr = 2e9
+    if thr <= 0:
+        return 0
+    try:
+        if (os.path.getsize(read_path) > thr
+                or os.path.getsize(paf_path) > thr):
+            return DEFAULT_CHUNK_READS
+    except OSError:
+        pass
+    return 0
+
+
+
+class _GroupedEventTable:
+    """Pre-grouped window-binned event slab with the
+    OverlapTable.events_grouped() contract (chunk slice of the
+    whole-input native counting-sort result; strictness was enforced
+    once at the global grouping)."""
+
+    def __init__(self, off, w0, w1, symmetric):
+        self._g = (np.ascontiguousarray(off, dtype=np.int64),
+                   np.ascontiguousarray(w0, dtype=np.int32),
+                   np.ascontiguousarray(w1, dtype=np.int32))
+        self.symmetric = symmetric
+        self.n_rows = len(self._g[1])
+
+    def events_grouped(self, n_reads, lens, reso, strict=True):
+        return self._g
+
+
+class _EventTable:
+    """Pre-built event view with the OverlapTable.events() contract."""
+
+    def __init__(self, ev_read, ev_lo, ev_hi, symmetric):
+        self._ev = (np.ascontiguousarray(ev_read, dtype=np.int32),
+                    np.ascontiguousarray(ev_lo, dtype=np.int32),
+                    np.ascontiguousarray(ev_hi, dtype=np.int32))
+        self.symmetric = symmetric
+        self.n_rows = len(ev_read)
+
+    def events(self, n_reads, strict=True):
+        return self._ev
+
+
+# ---------------------------------------------------------------------------
+# The torch port's own pipeline
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -224,7 +484,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
                             symmetric_overlaps=table.symmetric)
     grouped = None
     if auto_e:
-        from raft_tpu import auto_e as _auto_e
+        from raft_tpu_torch import auto_e as _auto_e
         with _Timer(stats, "auto_e"):
             info, grouped = _auto_e.estimate_for_table(
                 table, store.lens.astype(np.int64), store.n_reads,
@@ -250,7 +510,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     try:
         with _Timer(stats, "compute"):
             if engine == "oracle":
-                from raft_tpu.result import from_per_read_lists
+                from raft_tpu_torch.result import from_per_read_lists
                 coverages, repeats, frags, cstats = compute_oracle(
                     store, table, params, strict=strict)
                 res = from_per_read_lists(store.n_reads, coverages, repeats,
@@ -434,7 +694,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                 ev_hi = ev_hi[order]
 
     if auto_e:
-        from raft_tpu import auto_e as _auto_e
+        from raft_tpu_torch import auto_e as _auto_e
         with _Timer(stats, "auto_e"):
             if bins is not None:
                 info = _auto_e.estimate_for_bins(

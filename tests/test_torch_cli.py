@@ -23,6 +23,10 @@ OUTS = [".reads.fasta", ".coverage.txt", ".long_repeats.txt",
         ".long_repeats.bed"]
 ARGS = ["-e", "10", "-m", "1.3", "-p", "2000", "-l", "4000", "-f", "300",
         "-v", "200"]
+# An import of jax or of raft_tpu (not raft_tpu_torch), at any indentation.
+PORT_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
+                         r"import\s+raft_tpu(?!\w)|from\s+raft_tpu(?!\w))",
+                         re.M)
 
 
 def _run(main, args, cwd, capsys):
@@ -108,8 +112,8 @@ def test_no_strict_byte_equal(tmp_path, capsys):
 
 
 def test_pure_python_io_and_oracle_engine(tmp_path, capsys):
-    """The host-side options reach raft_tpu's I/O unchanged, and the
-    port's oracle engine matches its torch engine."""
+    """The host-side options reach the port's I/O as raft_tpu's reach its
+    own, and the port's oracle engine matches its torch engine."""
     reads, paf = datagen.standard_case(seed=14, tmpdir=str(tmp_path),
                                        n_reads=20)
     _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf],
@@ -210,7 +214,7 @@ def test_port_run_never_imports_jax(tmp_path):
     """In a fresh process (this one imported jax in conftest), importing
     raft_tpu_torch.parallel and full CLI runs of the port, whole-file,
     chunked under --trace and sharded with --devices 2, leave jax and
-    raft_tpu.parallel out of sys.modules."""
+    every raft_tpu module out of sys.modules."""
     reads, paf = datagen.standard_case(seed=17, tmpdir=str(tmp_path),
                                        n_reads=10)
     chunked = [*ARGS, "-o", "ch", "--chunk-reads", "3", "--trace", "tr",
@@ -224,7 +228,8 @@ def test_port_run_never_imports_jax(tmp_path):
             f"rc += main({chunked!r})\n"
             f"rc += main({sharded!r})\n"
             "print('RC', rc, 'JAX', 'jax' in sys.modules,\n"
-            "      'raft_tpu.parallel' in sys.modules)\n")
+            "      any(m.split('.')[0] == 'raft_tpu'\n"
+            "          for m in sys.modules))\n")
     env = {**os.environ, "PYTHONPATH": ROOT}
     r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -238,18 +243,17 @@ def test_port_run_never_imports_jax(tmp_path):
 
 
 def test_no_jax_import_in_port_sources():
-    """Neither jax nor raft_tpu.parallel (which imports jax) is imported
-    by the port or chip_smoke.py."""
-    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
-                     r"(import|from)\s+raft_tpu\.parallel\b|"
-                     r"from\s+raft_tpu\s+import\s+parallel\b)", re.M)
+    """Neither jax nor any module of raft_tpu is imported by the port or
+    chip_smoke.py, at any indentation (function-level imports included):
+    ``import raft_tpu``, ``import raft_tpu.x``, ``from raft_tpu import``
+    and ``from raft_tpu.x import``, but not ``raft_tpu_torch``."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 9
+    assert len(files) >= 20
     for fn in files:
         with open(fn) as f:
-            assert not pat.search(f.read()), fn
+            assert not PORT_IMPORT.search(f.read()), fn
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -271,10 +275,10 @@ def test_stats_json_reports_buckets_and_native_io(tmp_path, capsys,
 
     import numpy as np
 
-    from raft_tpu import bucketing
-    from raft_tpu.io import native
-    from raft_tpu.io.fasta import load_reads
-    from raft_tpu.io.paf import load_paf
+    from raft_tpu_torch import bucketing
+    from raft_tpu_torch.io import native
+    from raft_tpu_torch.io.fasta import load_reads
+    from raft_tpu_torch.io.paf import load_paf
     reads, paf = datagen.standard_case(seed=29, tmpdir=str(tmp_path),
                                        n_reads=41)
     extra = ["--pure-python-io"] if pure_python else []

@@ -1,8 +1,9 @@
 """The port's coverage return modes (``cov_out`` host / diff8 / cov) and
 its ``--trace`` against raft_tpu (JAX on the CPU): device_step array for
 array against ``engine_jax.device_step_impl``, compute_torch against
-compute_jax and the numpy oracle. Every compared value is integer or
-boolean, so the tolerance is exact equality."""
+compute_jax and the numpy oracle, each side's inputs built with its own
+package. Every compared value is integer or boolean, so the tolerance is
+exact equality."""
 
 from __future__ import annotations
 
@@ -19,17 +20,18 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import datagen  # noqa: E402
-from raft_tpu import bucketing  # noqa: E402
+from raft_tpu import bucketing as jbucketing  # noqa: E402
 from raft_tpu import engine_jax as ej  # noqa: E402
 from raft_tpu.engine_jax import compute_jax  # noqa: E402
-from raft_tpu.params import AlgoParams  # noqa: E402
+from raft_tpu.params import AlgoParams as JAlgoParams  # noqa: E402
 from raft_tpu.pipeline import compute_oracle  # noqa: E402
 from raft_tpu.result import from_per_read_lists  # noqa: E402
+from raft_tpu_torch import bucketing  # noqa: E402
 from raft_tpu_torch import engine_torch as et  # noqa: E402
 from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
-from test_engine import _mk_table  # noqa: E402
-from test_torch_engine import (_as_table, _assert_same, _mk_store,  # noqa
-                               _random_rows)
+from raft_tpu_torch.params import AlgoParams  # noqa: E402
+from test_torch_engine import (_assert_same, _case, _mk_store,  # noqa: E402
+                               _mk_table, _random_rows)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ["host", "diff8", "cov"]
@@ -61,20 +63,23 @@ def test_device_step_matches_jax(mode, seed):
     or cov) equals device_step_impl's for the same bucket, including rows
     whose int8 diff wrapped."""
     rng = np.random.default_rng(300 + seed)
-    params = AlgoParams(est_cov=3, cov_mul=1.2, repeat_length=500,
-                        interval_length=500, read_length=1500,
-                        overlap_length=60, flanking_length=120)
+    kw = dict(est_cov=3, cov_mul=1.2, repeat_length=500, interval_length=500,
+              read_length=1500, overlap_length=60, flanking_length=120)
+    params, jparams = AlgoParams(**kw), JAlgoParams(**kw)
     lens, ev_read, ev_lo, ev_hi = _overflow_bucket_case(rng)
     n_bad = 0
-    for bk in bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50):
+    for bk, jbk in zip(
+            bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50),
+            jbucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50),
+            strict=True):
         cfg = et.derive_cfg(bk.B, bk.W, bk.E, params, cov_out=mode)
         assert cfg.cov_out == mode
         got = et.device_step(*et.bucket_to_device(bk, cfg, "cpu"), cfg=cfg)
-        jcfg = ej.derive_cfg(bk.B, bk.W, bk.E, params, use_pallas=False,
+        jcfg = ej.derive_cfg(jbk.B, jbk.W, jbk.E, jparams, use_pallas=False,
                              cov_out=mode)
         want = ej.device_step_impl(
-            jnp.asarray(bk.lens), jnp.asarray(bk.ev_off),
-            jnp.asarray(ej.pack_events(bk.ev_w0, bk.ev_w1, jcfg)), jcfg)
+            jnp.asarray(jbk.lens), jnp.asarray(jbk.ev_off),
+            jnp.asarray(ej.pack_events(jbk.ev_w0, jbk.ev_w1, jcfg)), jcfg)
         assert set(got) == set(want)
         for k in want:
             assert got[k].dtype == {"diff8": torch.int8}.get(k, torch.int32)
@@ -91,16 +96,14 @@ def test_cov_out_modes_equal(path):
     events in host)."""
     rng = np.random.default_rng(17)
     lens = rng.integers(100, 30000, 64)
-    store = _mk_store(lens)
-    table = _as_table(_random_rows(rng, lens, 600), path)
-    params = AlgoParams(est_cov=4, cov_mul=1.2, repeat_length=800,
-                        interval_length=800, read_length=2000,
-                        flanking_length=100, overlap_length=50)
-    res = {m: compute_torch(store, table, params, cov_out=m, device="cpu")
-           for m in MODES}
+    port, ref = _case(lens, _random_rows(rng, lens, 600), path, est_cov=4,
+                      cov_mul=1.2, repeat_length=800, interval_length=800,
+                      read_length=2000, flanking_length=100,
+                      overlap_length=50)
+    res = {m: compute_torch(*port, cov_out=m, device="cpu") for m in MODES}
     for m in MODES:  # (ensure_cov below materializes host's cov_flat)
         assert (res[m].cov_flat is None) == (m == "host")
-        _assert_same(res[m], compute_jax(store, table, params, cov_out=m))
+        _assert_same(res[m], compute_jax(*ref, cov_out=m))
     np.testing.assert_array_equal(res["host"].ensure_cov(),
                                   res["diff8"].cov_flat)
     np.testing.assert_array_equal(res["cov"].cov_flat, res["diff8"].cov_flat)
@@ -118,18 +121,19 @@ def test_int8_overflow_fallback():
     compute_jax(cov_out="diff8")."""
     lens = [5000, 3000]
     rows = [(0, 100, 4000, 1, 0, 3900)] * 200 + [(1, 10, 2900, 0, 5, 2895)]
-    store = _mk_store(lens)
-    table = _mk_table(rows)
-    params = AlgoParams(est_cov=10, repeat_length=1000, interval_length=1000,
-                        read_length=2000)
-    res = compute_torch(store, table, params, cov_out="diff8", device="cpu")
-    cov, reps, frags, st = compute_oracle(store, table, params)
+    kw = dict(est_cov=10, repeat_length=1000, interval_length=1000,
+              read_length=2000)
+    ref = (_mk_store(lens, jax=True), _mk_table(rows, jax=True),
+           JAlgoParams(**kw))
+    res = compute_torch(_mk_store(lens), _mk_table(rows), AlgoParams(**kw),
+                        cov_out="diff8", device="cpu")
+    cov, reps, frags, st = compute_oracle(*ref)
     want = from_per_read_lists(2, cov, reps, frags, st)
     np.testing.assert_array_equal(res.ensure_cov(), want.ensure_cov())
     for f in ("rep_s", "rep_e", "frag_char_start", "frag_char_len"):
         np.testing.assert_array_equal(getattr(res, f), getattr(want, f), f)
     assert res.total_coverage == want.total_coverage
-    _assert_same(res, compute_jax(store, table, params, cov_out="diff8"))
+    _assert_same(res, compute_jax(*ref, cov_out="diff8"))
     assert res.ensure_cov().max() >= 200  # the pileup really passed int8
 
 
@@ -138,10 +142,10 @@ def test_default_cov_out_from_env(monkeypatch):
     explicit argument wins over it."""
     rng = np.random.default_rng(41)
     lens = rng.integers(100, 20000, 30)
-    store = _mk_store(lens)
-    table = _as_table(_random_rows(rng, lens, 200), "grouped")
-    params = AlgoParams(est_cov=3, repeat_length=500, interval_length=500,
-                        read_length=1500)
+    port, ref = _case(lens, _random_rows(rng, lens, 200), est_cov=3,
+                      repeat_length=500, interval_length=500,
+                      read_length=1500)
+    store, table, params = port
     monkeypatch.setenv("RAFT_COV_OUT", "cov")
     assert et.derive_cfg(8, 64, 64, params).cov_out == "cov"
     res = compute_torch(store, table, params, device="cpu")
@@ -149,7 +153,7 @@ def test_default_cov_out_from_env(monkeypatch):
     host = compute_torch(store, table, params, cov_out="host", device="cpu")
     assert host.cov_flat is None and host.cov_ev_w0 is not None
     monkeypatch.delenv("RAFT_COV_OUT")
-    _assert_same(res, compute_jax(store, table, params, cov_out="cov"))
+    _assert_same(res, compute_jax(*ref, cov_out="cov"))
     np.testing.assert_array_equal(host.ensure_cov(), res.cov_flat)
 
 
@@ -193,7 +197,7 @@ def test_cov_out_cfg_field_matches_jax():
     params = AlgoParams(est_cov=4)
     for m in MODES:
         t = et.derive_cfg(16, 256, 64, params, cov_out=m)
-        j = ej.derive_cfg(16, 256, 64, params, cov_out=m)
+        j = ej.derive_cfg(16, 256, 64, JAlgoParams(est_cov=4), cov_out=m)
         assert t.cov_out == j.cov_out == m
         assert dataclasses.replace(t, cov_out="host") == et.derive_cfg(
             16, 256, 64, params, cov_out="host")

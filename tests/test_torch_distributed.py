@@ -17,12 +17,12 @@ torch = pytest.importorskip("torch")
 
 import datagen  # noqa: E402
 from raft_tpu import cli as tpu_cli  # noqa: E402
-from raft_tpu.io import native  # noqa: E402
-from raft_tpu.io.fasta import load_reads  # noqa: E402
-from raft_tpu.io.paf import load_paf  # noqa: E402
 from raft_tpu.parallel import distributed as jdist  # noqa: E402
 from raft_tpu_torch.cli import parse_args  # noqa: E402
 from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
+from raft_tpu_torch.io import native  # noqa: E402
+from raft_tpu_torch.io.fasta import load_reads  # noqa: E402
+from raft_tpu_torch.io.paf import load_paf  # noqa: E402
 from raft_tpu_torch.parallel import distributed as dist  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,7 +87,8 @@ def test_sharded_emit_equals_single(tmp_path, n_hosts, simulated):
     for lo, hi in dist.shard_ranges(store.n_reads, n_hosts):
         sub_store = dist._slice_store(store, lo, hi)
         sub_table = dist._slice_table(table, lo, hi)
-        res = compute_torch(sub_store, sub_table, params, strict=False)
+        res = compute_torch(sub_store, sub_table, params, strict=False,
+                            device="cpu")
         results.append((lo, sub_store, res))
     offsets = dist.fragment_offsets([r.n_frags for _, _, r in results])
     for h, (lo, sub_store, res) in enumerate(results):
@@ -110,12 +111,12 @@ def _free_port() -> int:
 
 # One rank of a real run: run_distributed on the CPU, then the rank, its
 # pileup launch count (0: CPU tensors never launch the kernel) and
-# whether jax was imported. ``wholeparse`` hides the native index, so the
-# run takes the whole-parse fallback.
+# whether jax or any raft_tpu module was imported. ``wholeparse`` hides
+# the port's native index, so the run takes the whole-parse fallback.
 _WORKER = """\
 import sys
-from raft_tpu.io import native
 from raft_tpu_torch.cli import parse_args
+from raft_tpu_torch.io import native
 from raft_tpu_torch.ops import pileup_cuda
 from raft_tpu_torch.parallel import run_distributed
 if {wholeparse}:
@@ -124,7 +125,8 @@ params = parse_args({args!r})[0]
 run_distributed({reads!r}, {paf!r}, params, coordinator={coord!r},
                 num_processes={n}, process_id={pid}, device="cpu")
 print("RANK", {pid}, "LAUNCHES", pileup_cuda.launches,
-      "JAX", "jax" in sys.modules)
+      "JAX", "jax" in sys.modules, "RAFT_TPU",
+      any(m.split(".")[0] == "raft_tpu" for m in sys.modules))
 """
 
 
@@ -152,7 +154,8 @@ def _run_ranks(tmp_path, reads, paf, n_proc, wholeparse=False):
                 p.communicate()
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {pid} failed:\n{out[-3000:]}"
-        assert out.splitlines()[-1] == f"RANK {pid} LAUNCHES 0 JAX False"
+        assert (out.splitlines()[-1]
+                == f"RANK {pid} LAUNCHES 0 JAX False RAFT_TPU False")
 
 
 def _assert_equals_single(tmp_path, reads, paf):

@@ -1,6 +1,9 @@
 """compute_torch (device="cpu") against compute_jax: every ComputeResult
-array and total equal, on the cases of tests/test_engine.py. All compared
-values are integer or boolean, so the tolerance is exact equality."""
+array and total equal, on the cases of tests/test_engine.py. Each side
+builds its inputs (ReadStore, OverlapTable, AlgoParams) with its own
+package from the same numbers, and the results are compared field by
+field. All compared values are integer or boolean, so the tolerance is
+exact equality."""
 
 from __future__ import annotations
 
@@ -11,21 +14,53 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from raft_tpu import pipeline as jpipeline  # noqa: E402
 from raft_tpu.engine_jax import compute_jax  # noqa: E402
-from raft_tpu.io.fasta import ReadStore  # noqa: E402
-from raft_tpu.params import AlgoParams  # noqa: E402
-from raft_tpu.pipeline import _EventTable, compute_oracle  # noqa: E402
-from raft_tpu.result import ComputeResult, from_per_read_lists  # noqa: E402
+from raft_tpu.io import fasta as jfasta  # noqa: E402
+from raft_tpu.io import paf as jpaf  # noqa: E402
+from raft_tpu.params import AlgoParams as JAlgoParams  # noqa: E402
+from raft_tpu.result import from_per_read_lists  # noqa: E402
 from raft_tpu_torch import engine_torch  # noqa: E402
+from raft_tpu_torch import pipeline as ppipeline  # noqa: E402
 from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
-from test_engine import _mk_table  # noqa: E402
+from raft_tpu_torch.io import fasta as pfasta  # noqa: E402
+from raft_tpu_torch.io import paf as ppaf  # noqa: E402
+from raft_tpu_torch.params import AlgoParams  # noqa: E402
+from raft_tpu_torch.result import ComputeResult  # noqa: E402
+
+# Each package's own host classes: the port's side of a comparison is
+# built from raft_tpu_torch, the reference's from raft_tpu.
+_PKG = {False: (pfasta, ppaf, ppipeline, AlgoParams),
+        True: (jfasta, jpaf, jpipeline, JAlgoParams)}
 
 
-def _mk_store(lens):
+def _mk_store(lens, jax=False):
     """Lengths only: the compute engines never read the bases."""
-    return ReadStore(names=[f"r{i}" for i in range(len(lens))],
-                     seq_blob=b"", seq_off=np.zeros(len(lens) + 1, np.int64),
-                     lens=np.asarray(lens, dtype=np.int32), real_reads=True)
+    return _PKG[jax][0].ReadStore(
+        names=[f"r{i}" for i in range(len(lens))], seq_blob=b"",
+        seq_off=np.zeros(len(lens) + 1, np.int64),
+        lens=np.asarray(lens, dtype=np.int32), real_reads=True)
+
+
+def _mk_table(rows, jax=False, symmetric=True, n_names=None):
+    """tests/test_engine.py's table builder, in either package."""
+    a_id, a_s, a_e, b_id, b_s, b_e = map(
+        lambda x: np.asarray(x, dtype=np.int32), zip(*rows))
+    return _PKG[jax][1].OverlapTable(
+        a_id=a_id, b_id=b_id, a_start=a_s, a_end=a_e, b_start=b_s,
+        b_end=b_e, symmetric=symmetric,
+        n_names=int(a_id.max()) + 1 if n_names is None else n_names)
+
+
+def _params(jax=False, **kw):
+    return _PKG[jax][3](**kw)
+
+
+def _case(lens, rows, path="grouped", **params):
+    """(store, table, params) for the port and for raft_tpu, each built
+    with its own package from the same lengths, rows and parameters."""
+    return tuple((_mk_store(lens, jax), _as_table(rows, path, jax),
+                  _params(jax, **params)) for jax in (False, True))
 
 
 def _random_rows(rng, lens, n_rows):
@@ -41,19 +76,20 @@ def _random_rows(rng, lens, n_rows):
     return rows
 
 
-def _as_table(rows, path):
+def _as_table(rows, path, jax=False):
     """``grouped``: the OverlapTable (native counting-sort grouping);
     ``sorted``: an events()-only table, which takes the argsort path."""
-    table = _mk_table(rows)
-    table.symmetric = False
+    table = _mk_table(rows, jax, symmetric=False)
     if path == "sorted":
-        table = _EventTable(*table.events(int(table.n_names)), False)
+        table = _PKG[jax][2]._EventTable(*table.events(int(table.n_names)),
+                                         False)
     return table
 
 
-def _assert_same(a: ComputeResult, b: ComputeResult):
-    """Every field equal; coverage compared materialized (either side may
-    hold it as events)."""
+def _assert_same(a, b):
+    """Every field of the port's ComputeResult equal, one by one (the two
+    packages' results are different classes with the same fields);
+    coverage compared materialized (either side may hold it as events)."""
     for f in dataclasses.fields(ComputeResult):
         if f.name == "cov_flat":
             continue
@@ -70,15 +106,14 @@ def _assert_same(a: ComputeResult, b: ComputeResult):
 def test_engines_equal_random(path):
     rng = np.random.default_rng(5)
     lens = rng.integers(100, 20000, 50)
-    store = _mk_store(lens)
-    table = _as_table(_random_rows(rng, lens, 400), path)
-    params = AlgoParams(est_cov=3, cov_mul=1.2, repeat_length=500,
-                        interval_length=500, read_length=1500,
-                        flanking_length=120, overlap_length=60)
-    res = compute_torch(store, table, params, device="cpu")
-    _assert_same(res, compute_jax(store, table, params))
-    cov, reps, frags, st = compute_oracle(store, table, params)
-    want = from_per_read_lists(store.n_reads, cov, reps, frags, st)
+    port, ref = _case(lens, _random_rows(rng, lens, 400), path, est_cov=3,
+                      cov_mul=1.2, repeat_length=500, interval_length=500,
+                      read_length=1500, flanking_length=120,
+                      overlap_length=60)
+    res = compute_torch(*port, device="cpu")
+    _assert_same(res, compute_jax(*ref))
+    cov, reps, frags, st = jpipeline.compute_oracle(*ref)
+    want = from_per_read_lists(len(lens), cov, reps, frags, st)
     np.testing.assert_array_equal(res.ensure_cov(), want.ensure_cov())
     np.testing.assert_array_equal(res.frag_char_len, want.frag_char_len)
 
@@ -89,13 +124,12 @@ def test_ultralong_reads_end_to_end():
     lens = [2_500_000, 2_100_000, 20_000, 500]
     rows = _random_rows(rng, lens, 300)
     rows += [(0, 1_000_000, 1_040_000, 1, 0, 40_000)] * 40
-    store = _mk_store(lens)
-    table = _as_table(rows, "grouped")
-    params = AlgoParams(est_cov=5, cov_mul=1.2, repeat_length=10000,
-                        interval_length=10000, read_length=20000,
-                        overlap_length=500, flanking_length=1000)
-    res = compute_torch(store, table, params, device="cpu")
-    _assert_same(res, compute_jax(store, table, params))
+    port, ref = _case(lens, rows, est_cov=5, cov_mul=1.2,
+                      repeat_length=10000, interval_length=10000,
+                      read_length=20000, overlap_length=500,
+                      flanking_length=1000)
+    res = compute_torch(*port, device="cpu")
+    _assert_same(res, compute_jax(*ref))
     assert res.total_read_length == sum(lens)
     assert len(res.rep_s) > 0
 
@@ -113,13 +147,11 @@ def test_bucket_area_cap(monkeypatch):
     monkeypatch.setattr(engine_torch, "derive_cfg", spy)
     rng = np.random.default_rng(9)
     lens = np.full(150, 2_500_000)
-    store = _mk_store(lens)
-    table = _as_table(_random_rows(rng, lens, 200), "grouped")
-    params = AlgoParams(est_cov=2)
-    res = compute_torch(store, table, params, device="cpu")
+    port, ref = _case(lens, _random_rows(rng, lens, 200), est_cov=2)
+    res = compute_torch(*port, device="cpu")
     assert seen and all(W == 65536 and B * W <= (1 << 23) for B, W in seen)
     assert len(seen) == 2
-    _assert_same(res, compute_jax(store, table, params))
+    _assert_same(res, compute_jax(*ref))
 
 
 def test_cov_events_callback_timers_and_grouped(monkeypatch, capsys):
@@ -128,11 +160,11 @@ def test_cov_events_callback_timers_and_grouped(monkeypatch, capsys):
     grouped triple is used as is."""
     rng = np.random.default_rng(17)
     lens = rng.integers(100, 30000, 64)
-    store = _mk_store(lens)
-    table = _as_table(_random_rows(rng, lens, 600), "grouped")
-    params = AlgoParams(est_cov=4, cov_mul=1.2, repeat_length=800,
-                        interval_length=800, read_length=2000,
-                        flanking_length=100, overlap_length=50)
+    port, ref = _case(lens, _random_rows(rng, lens, 600), est_cov=4,
+                      cov_mul=1.2, repeat_length=800, interval_length=800,
+                      read_length=2000, flanking_length=100,
+                      overlap_length=50)
+    store, table, params = port
     early = []
     timers = {}
     grouped = table.events_grouped(store.n_reads, store.lens, params.reso)
@@ -146,7 +178,7 @@ def test_cov_events_callback_timers_and_grouped(monkeypatch, capsys):
     np.testing.assert_array_equal(early[0].ensure_cov(), res.ensure_cov())
     assert early[0].total_coverage == res.total_coverage
     monkeypatch.undo()
-    _assert_same(res, compute_jax(store, table, params))
+    _assert_same(res, compute_jax(*ref))
 
 
 def test_cov_out_other_than_host_is_refused(monkeypatch):
@@ -155,10 +187,11 @@ def test_cov_out_other_than_host_is_refused(monkeypatch):
     store = _mk_store([1000])
     table = _as_table([(0, 0, 500, 0, 100, 600)], "grouped")
     with pytest.raises(ValueError, match="cov_out"):
-        compute_torch(store, table, AlgoParams(est_cov=2), cov_out="diff16")
+        compute_torch(store, table, AlgoParams(est_cov=2), cov_out="diff16",
+                      device="cpu")
     monkeypatch.setenv("RAFT_COV_OUT", "int8")
     with pytest.raises(ValueError, match="cov_out"):
-        compute_torch(store, table, AlgoParams(est_cov=2))
+        compute_torch(store, table, AlgoParams(est_cov=2), device="cpu")
 
 
 @pytest.mark.parametrize("path", ["grouped", "sorted"])
@@ -166,17 +199,18 @@ def test_on_bucket_sees_each_bucket_before_its_step(path):
     """on_bucket gets every bucket's device inputs, once, in the engine's
     order and at the shapes iter_buckets makes; pileup on them equals the
     JAX scatter path's coverage for the same bucket (exact)."""
-    from raft_tpu import bucketing
+    from raft_tpu import bucketing as jbucketing
     from raft_tpu import engine_jax as ej
+    from raft_tpu_torch import bucketing
     from raft_tpu_torch.ops import pileup_cuda
     rng = np.random.default_rng(23)
     lens = np.concatenate([rng.integers(100, 20000, 90),
                            [300_000, 2_500_000]]).astype(np.int32)
-    store = _mk_store(lens)
-    table = _as_table(_random_rows(rng, lens, 700), path)
-    params = AlgoParams(est_cov=3, cov_mul=1.2, repeat_length=500,
-                        interval_length=500, read_length=1500,
-                        flanking_length=120, overlap_length=60)
+    port, ref = _case(lens, _random_rows(rng, lens, 700), path, est_cov=3,
+                      cov_mul=1.2, repeat_length=500, interval_length=500,
+                      read_length=1500, flanking_length=120,
+                      overlap_length=60)
+    store, table, params = port
     seen = []
 
     def on_bucket(cfg, lens_d, ev_off, ev_pk):
@@ -192,8 +226,15 @@ def test_on_bucket_sees_each_bucket_before_its_step(path):
     assert [(c.B, c.W, c.E) for c, _ in seen] == [(b.B, b.W, b.E)
                                                   for b in bks]
     assert any(c.ev_pack == 0 for c, _ in seen)
-    for (cfg, cov), bk in zip(seen, bks):
-        jcfg = ej.derive_cfg(bk.B, bk.W, bk.E, params)
+    jstore, jtable, jparams = ref
+    ev_read, ev_lo, ev_hi = jtable.events(jstore.n_reads)
+    order = np.argsort(ev_read, kind="stable")
+    jbks = list(jbucketing.iter_buckets(lens, ev_read[order], ev_lo[order],
+                                        ev_hi[order], jparams.reso,
+                                        presorted=True))
+    assert len(jbks) == len(bks)
+    for (cfg, cov), bk in zip(seen, jbks):
+        jcfg = ej.derive_cfg(bk.B, bk.W, bk.E, jparams)
         want = ej.pileup_diff_scatter(bk.ev_row, bk.ev_w0, bk.ev_w1, jcfg)[0]
         np.testing.assert_array_equal(cov, np.asarray(want),
                                       err_msg=f"B={bk.B} W={bk.W}")

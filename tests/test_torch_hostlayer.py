@@ -1,0 +1,266 @@
+"""The port's own host layer against raft_tpu's, module by module: each
+copy in ``raft_tpu_torch`` (native and pure-Python I/O, bucketing, the
+numpy oracle, the result builder, the CLI parser, the dataset generator)
+is run beside its ``raft_tpu`` original on the tests/datagen.py fixtures,
+each side loading its own inputs with its own package. Every compared
+value is an integer array, a string or bytes: the tolerance is exact
+equality. Also: the port's CLI run loads neither raft_tpu nor jax."""
+
+from __future__ import annotations
+
+import dataclasses
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import datagen  # noqa: E402
+from raft_tpu import bucketing as jbucketing  # noqa: E402
+from raft_tpu import cli as jcli  # noqa: E402
+from raft_tpu import pipeline as jpipeline  # noqa: E402
+from raft_tpu import result as jresult  # noqa: E402
+from raft_tpu.io import fasta as jfasta  # noqa: E402
+from raft_tpu.io import native as jnative  # noqa: E402
+from raft_tpu.io import paf as jpaf  # noqa: E402
+from raft_tpu.tools import benchgen as jbenchgen  # noqa: E402
+from raft_tpu_torch import bucketing, cli, gen_dataset, pipeline  # noqa: E402
+from raft_tpu_torch import result  # noqa: E402
+from raft_tpu_torch.io import fasta, native, paf  # noqa: E402
+from test_torch_cli import PORT_IMPORT  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = [dict(), dict(simulated=True), dict(symmetric=True), dict(gz=True),
+            dict(fastq=True), dict(multiline=True)]
+FIXTURE_IDS = ["real", "simulated", "symmetric", "gz", "fastq", "multiline"]
+
+
+def _fixture(tmp_path, mode, seed=41, n_reads=41):
+    return datagen.standard_case(seed=seed, tmpdir=str(tmp_path),
+                                 n_reads=n_reads, **mode)
+
+
+def _load_both(reads, paf_path, use_native):
+    """(port store, port table), (raft_tpu store, raft_tpu table): each
+    package parses the same files with its own parsers."""
+    ps = fasta.load_reads(reads, use_native=use_native)
+    js = jfasta.load_reads(reads, use_native=use_native)
+    return ((ps, paf.load_paf(paf_path, ps, use_native=use_native)),
+            (js, jpaf.load_paf(paf_path, js, use_native=use_native)))
+
+
+def _same(a, b, what):
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert np.asarray(a).dtype == np.asarray(b).dtype, what
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    else:
+        assert a == b, what
+
+
+def _same_fields(a, b, fields, what):
+    for f in fields:
+        _same(getattr(a, f), getattr(b, f), f"{what}.{f}")
+
+
+def test_native_library_is_the_ports_own():
+    """The port loads its own library, built from its own source with
+    fixed flags, independent of raft_tpu's (both load in one process)."""
+    assert native._get_lib() is not None
+    assert native._SO.startswith(os.path.join(ROOT, "raft_tpu_torch"))
+    assert os.path.basename(native._SO) == "libraftio_torch.so"
+    assert native._SRC == os.path.join(ROOT, "raft_tpu_torch", "_native",
+                                       "raftio.cpp")
+    assert not any(a.startswith("$") for a in native.BUILD_CMD)
+    if jnative._get_lib() is not None:
+        assert native._get_lib()._handle != jnative._get_lib()._handle
+    with open(native._SRC, "rb") as f, open(os.path.join(
+            ROOT, "raft_tpu", "_native", "raftio.cpp"), "rb") as g:
+        assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("use_native", [None, False], ids=["native", "python"])
+@pytest.mark.parametrize("mode", FIXTURES, ids=FIXTURE_IDS)
+def test_load_reads_and_paf_equal(tmp_path, mode, use_native):
+    """ReadStore and OverlapTable arrays, and both event views, equal
+    raft_tpu's on the same files, native and --pure-python-io."""
+    reads, paf_path = _fixture(tmp_path, mode)
+    (ps, pt), (js, jt) = _load_both(reads, paf_path, use_native)
+    _same_fields(ps, js, [f.name for f in dataclasses.fields(ps)
+                          if f.name != "name_to_id"], "ReadStore")
+    _same_fields(pt, jt, [f.name for f in dataclasses.fields(pt)],
+                 "OverlapTable")
+    for a, b in zip(pt.events(ps.n_reads), jt.events(js.n_reads),
+                    strict=True):
+        _same(a, b, "events")
+    lens = ps.lens.astype(np.int64)
+    for a, b in zip(pt.events_grouped(ps.n_reads, lens, 50),
+                    jt.events_grouped(js.n_reads, lens, 50), strict=True):
+        _same(a, b, "events_grouped")
+
+
+def test_load_reads_range_and_index_equal(tmp_path):
+    """The streaming schedule's native index and byte-range load."""
+    reads, _ = _fixture(tmp_path, dict(simulated=True))
+    pi, ji = native.index_reads(reads), jnative.index_reads(reads)
+    assert pi["n"] == ji["n"] == 41
+    for k in ("rec_off", "lens", "names", "real_reads", "fastq"):
+        _same(pi[k], ji[k], k)
+    lo, hi = int(pi["rec_off"][7]), int(pi["rec_off"][30])
+    ps = native.load_reads_range(pi["data_path"], lo, hi, fastq=pi["fastq"])
+    js = jnative.load_reads_range(ji["data_path"], lo, hi, fastq=ji["fastq"])
+    _same_fields(ps, js, ["names", "seq_blob", "seq_off", "lens"], "range")
+
+
+@pytest.mark.parametrize("mode", FIXTURES[:3], ids=FIXTURE_IDS[:3])
+def test_iter_buckets_equal(tmp_path, mode):
+    """Every bucket of iter_buckets, field for field, dtype included, from
+    the sorted events and from the native grouping."""
+    reads, paf_path = _fixture(tmp_path, mode, seed=43)
+    (ps, pt), (js, jt) = _load_both(reads, paf_path, None)
+    lens = ps.lens.astype(np.int32)
+
+    def buckets(mod, store, table, grouped):
+        if grouped:
+            g = table.events_grouped(store.n_reads, store.lens, 50)
+            return list(mod.iter_buckets(lens, None, None, None, 50,
+                                         presorted=True, prebinned=g))
+        r, a, b = table.events(store.n_reads)
+        o = np.argsort(r, kind="stable")
+        return list(mod.iter_buckets(lens, r[o], a[o], b[o], 50,
+                                     presorted=True))
+
+    for grouped in (False, True):
+        got = buckets(bucketing, ps, pt, grouped)
+        want = buckets(jbucketing, js, jt, grouped)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            _same_fields(g, w, [f.name for f in dataclasses.fields(g)],
+                         "Bucket")
+
+
+@pytest.mark.parametrize("mode", FIXTURES[:3], ids=FIXTURE_IDS[:3])
+def test_oracle_and_result_equal(tmp_path, mode):
+    """compute_oracle (the numpy oracle's three stages per read) and
+    from_per_read_lists give raft_tpu's per-read lists and flat result."""
+    reads, paf_path = _fixture(tmp_path, mode, seed=47)
+    (ps, pt), (js, jt) = _load_both(reads, paf_path, None)
+    args = ["-e", "10", "-m", "1.3", "-p", "2000", "-l", "4000", "-f",
+            "300", "-v", "200", reads, paf_path]
+    got = pipeline.compute_oracle(ps, pt, cli.parse_args(args)[0])
+    want = jpipeline.compute_oracle(js, jt, jcli.parse_args(args)[0])
+    for g, w in zip(got[0], want[0], strict=True):
+        _same(g, w, "coverage")
+    assert got[1] == want[1]
+    assert ([[dataclasses.astuple(f) for f in fr] for fr in got[2]]
+            == [[dataclasses.astuple(f) for f in fr] for fr in want[2]])
+    assert dataclasses.asdict(got[3]) == dataclasses.asdict(want[3])
+    gr = result.from_per_read_lists(ps.n_reads, *got)
+    wr = jresult.from_per_read_lists(js.n_reads, *want)
+    _same_fields(gr, wr, [f.name for f in dataclasses.fields(gr)],
+                 "ComputeResult")
+    _same(gr.ensure_cov(), wr.ensure_cov(), "ensure_cov")
+
+
+ARGVS = [
+    ["-e", "10", "r.fa", "o.paf"],
+    ["-e20", "-m", "1.5", "-p", "10000", "-l", "20000", "-f", "1000",
+     "-v", "500", "r.fa", "o.paf"],
+    ["-v", "500", "-o", "pre", "r.fa", "o.paf"],
+    ["-v", "500", "--no-compat-getopt", "r.fa", "o.paf"],
+    ["-r", "100", "-e", "7x", "-m", "2e0", "--", "r.fa", "o.paf"],
+    ["r.fa", "-e", "3", "o.paf", "--no-strict", "--pure-python-io",
+     "--profile", "--gz-out", "--auto-e"],
+    ["-e", "5", "--chunk-reads", "7", "--spill-paf", "--cov-out", "diff8",
+     "--trace", "tr", "--devices", "2", "--stats-json", "s.json",
+     "r.fa", "o.paf"],
+    ["-e", "5", "--chunk-reads=0", "--no-spill-paf", "--cov-out=cov",
+     "--trace=t2", "--devices=4", "--stats-json=x", "--engine=oracle",
+     "--pallas", "r.fa", "o.paf"],
+    ["-e", "5", "--engine", "jax", "--no-pallas", "r.fa", "o.paf"],
+]
+BAD_ARGVS = [["-e", "5", "r.fa"], ["-x", "r.fa", "o.paf"],
+             ["-i", "3", "r.fa", "o.paf"], ["-e"]]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a))
+def test_parse_args_equal(argv):
+    """The same params and extras as raft_tpu.cli.parse_args."""
+    got = cli.parse_args(argv)
+    want = jcli.parse_args(argv)
+    assert dataclasses.asdict(got[0]) == dataclasses.asdict(want[0])
+    assert got[1:] == want[1:]
+
+
+@pytest.mark.parametrize("argv", BAD_ARGVS, ids=lambda a: " ".join(a))
+def test_parse_args_refusals_equal(argv, capsys):
+    """Unknown flags, -i and a missing input exit 1 with the same help."""
+    outs = []
+    for mod in (cli, jcli):
+        with pytest.raises(SystemExit) as e:
+            mod.parse_args(argv)
+        outs.append((e.value.code, capsys.readouterr().out))
+    assert outs[0] == outs[1] and outs[0][0] == 1
+
+
+def test_print_help_equal():
+    for argv in ARGVS[:3]:
+        a, b = io.StringIO(), io.StringIO()
+        cli.print_help(cli.parse_args(argv)[0], a)
+        jcli.print_help(jcli.parse_args(argv)[0], b)
+        assert a.getvalue() == b.getvalue() and a.getvalue()
+
+
+def test_gen_dataset_byte_equal(tmp_path):
+    """The seed-7 generator writes raft_tpu's bytes."""
+    kw = dict(n_reads=60, n_overlaps=900, est_cov=20, seed=7)
+    got = gen_dataset(str(tmp_path / "port"), **kw)
+    want = jbenchgen.gen_dataset(str(tmp_path / "ref"), **kw)
+    for g, w in zip(got, want):
+        with open(g, "rb") as f, open(w, "rb") as h:
+            data = f.read()
+            assert data == h.read() and data
+
+
+def test_port_cli_loads_neither_raft_tpu_nor_jax(tmp_path):
+    """A fresh process runs the port's CLI on a fixture with --device cpu
+    (native I/O, then --engine oracle): no raft_tpu or raft_tpu.* module
+    and no jax is ever in sys.modules, and the outputs are written."""
+    reads, paf_path = _fixture(tmp_path, dict(simulated=True), n_reads=12)
+    args = ["-e", "10", "-m", "1.3", "-p", "2000", "-l", "4000", "-f", "300",
+            "-v", "200", "--device", "cpu", reads, paf_path]
+    code = ("import sys\n"
+            "from raft_tpu_torch.cli import main\n"
+            f"rc = main({args!r})\n"
+            f"rc += main({[*args, '-o', 'orc', '--engine', 'oracle']!r})\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('raft_tpu', 'jax'))\n"
+            "print('RC', rc, 'LOADED', bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                       env={**os.environ, "PYTHONPATH": ROOT},
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.splitlines()[-1] == "RC 0 LOADED []"
+    assert ((tmp_path / "200.reads.fasta").read_bytes()
+            == (tmp_path / "orc.reads.fasta").read_bytes())
+
+
+@pytest.mark.parametrize("line,caught", [
+    ("import raft_tpu", True), ("import raft_tpu.cli", True),
+    ("    from raft_tpu import emit", True),
+    ("\tfrom raft_tpu.io import native", True),
+    ("        from raft_tpu.io.fasta import (ReadStore,", True),
+    ("import jax.numpy as jnp", True), ("    from jax import lax", True),
+    ("from raft_tpu_torch import emit", False),
+    ("    from raft_tpu_torch.io import native", False),
+    ("import raft_tpu_torch.parallel", False),
+    ("# raft_tpu.io.native builds its library", False),
+])
+def test_source_scan_catches_every_import_form(line, caught):
+    """The pattern of test_torch_cli.test_no_jax_import_in_port_sources
+    rejects top-level and function-level imports of raft_tpu and jax, and
+    nothing of raft_tpu_torch."""
+    assert bool(PORT_IMPORT.search(f"x = 1\n{line}\n")) is caught

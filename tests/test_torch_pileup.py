@@ -13,14 +13,17 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from raft_tpu import bucketing  # noqa: E402
+from raft_tpu import bucketing as jbucketing  # noqa: E402
 from raft_tpu import engine_jax as ej  # noqa: E402
 from raft_tpu.ops.pileup_pallas import EB, pileup_pallas  # noqa: E402
-from raft_tpu.params import AlgoParams  # noqa: E402
+from raft_tpu.params import AlgoParams as JAlgoParams  # noqa: E402
+from raft_tpu_torch import bucketing  # noqa: E402
 from raft_tpu_torch import engine_torch as et  # noqa: E402
 from raft_tpu_torch.ops import pileup_cuda  # noqa: E402
+from raft_tpu_torch.params import AlgoParams  # noqa: E402
 
 PARAMS = AlgoParams(est_cov=10, reso=50)
+JPARAMS = JAlgoParams(est_cov=10, reso=50)
 
 
 def _wire(w0, w1, cfg):
@@ -30,7 +33,7 @@ def _wire(w0, w1, cfg):
 
 
 def _jax_ref(rows, w0, w1, cfg):
-    jcfg = ej.derive_cfg(cfg.B, cfg.W, cfg.E, PARAMS)
+    jcfg = ej.derive_cfg(cfg.B, cfg.W, cfg.E, JPARAMS)
     return np.asarray(ej.pileup_diff_scatter(
         jnp.asarray(rows), jnp.asarray(w0), jnp.asarray(w1), jcfg)[0]), jcfg
 
@@ -77,16 +80,20 @@ def test_pileup_matches_pallas_and_scatter(seed, n_reads, max_len):
     the scatter path; the Pallas-aligned ones equal the Pallas kernel."""
     rng = np.random.default_rng(seed)
     lens, ev_read, ev_lo, ev_hi = _sorted_case(rng, n_reads, max_len)
-    for bk in bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50):
+    for bk, jbk in zip(
+            bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50),
+            jbucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50),
+            strict=True):
         cfg = et.derive_cfg(bk.B, bk.W, bk.E, PARAMS)
         _, ev_off, ev_pk = et.bucket_to_device(bk, cfg, "cpu")
         got = pileup_cuda.pileup(ev_off, ev_pk, cfg).numpy()
-        want, jcfg = _jax_ref(bk.ev_row, bk.ev_w0, bk.ev_w1, cfg)
+        want, jcfg = _jax_ref(jbk.ev_row, jbk.ev_w0, jbk.ev_w1, cfg)
         np.testing.assert_array_equal(got, want, err_msg=f"W={bk.W}")
         if bk.B % min(128, bk.B) or bk.W % 128:
             continue  # outside the Pallas kernel's tile constraints
-        pallas = pileup_pallas(jnp.asarray(bk.ev_row), jnp.asarray(bk.ev_w0),
-                               jnp.asarray(bk.ev_w1), jcfg, interpret=True)
+        pallas = pileup_pallas(jnp.asarray(jbk.ev_row),
+                               jnp.asarray(jbk.ev_w0),
+                               jnp.asarray(jbk.ev_w1), jcfg, interpret=True)
         np.testing.assert_array_equal(got, np.asarray(pallas),
                                       err_msg=f"W={bk.W}")
 
@@ -98,18 +105,22 @@ def test_pileup_matches_pallas_host_wrapper_path(seed):
     rng = np.random.default_rng(300 + seed)
     lens, ev_read, ev_lo, ev_hi = _sorted_case(rng, 300, 20000)
     seen = False
-    for bk in bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50,
-                                     e_quantum=EB):
+    for bk, jbk in zip(
+            bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50,
+                                   e_quantum=EB),
+            jbucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50,
+                                    e_quantum=EB), strict=True):
         if bk.B % min(128, bk.B) or bk.W % 128:
             continue
         seen = True
         cfg = et.derive_cfg(bk.B, bk.W, bk.E, PARAMS)
         _, ev_off, ev_pk = et.bucket_to_device(bk, cfg, "cpu")
         got = pileup_cuda.pileup(ev_off, ev_pk, cfg).numpy()
-        jcfg = ej.derive_cfg(bk.B, bk.W, bk.E, PARAMS)
-        pallas = pileup_pallas(jnp.asarray(bk.ev_row), jnp.asarray(bk.ev_w0),
-                               jnp.asarray(bk.ev_w1), jcfg,
-                               ev_off=jnp.asarray(bk.ev_off), interpret=True)
+        jcfg = ej.derive_cfg(jbk.B, jbk.W, jbk.E, JPARAMS)
+        pallas = pileup_pallas(jnp.asarray(jbk.ev_row),
+                               jnp.asarray(jbk.ev_w0),
+                               jnp.asarray(jbk.ev_w1), jcfg,
+                               ev_off=jnp.asarray(jbk.ev_off), interpret=True)
         np.testing.assert_array_equal(got, np.asarray(pallas))
     assert seen
 
@@ -183,15 +194,116 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert not out.exists()
 
 
+# The 32k bench path's bucket shapes (PERF.md section 5) and widths at the
+# edges of each regime and of the TMA store.
+BUCKET_SHAPES = [(512, 128), (3072, 256), (4096, 512), (384, 512),
+                 (4096, 1024), (384, 1024), (8, 2048)]
+EDGE_SHAPES = [(1, 1), (5, 3), (9, 5), (33, 7), (3, 2049), (2, 3000),
+               (2, 3628), (2, 3629), (3, 4096), (2, 65538), (2, 65540),
+               (1, 100_001)]
+
+
+def _plan_cover(plan, B, W):
+    """How many times the kernels, indexed as csrc/pileup.cu indexes
+    them, write each (row, window) under ``plan``."""
+    cover = np.zeros((B, W), dtype=np.int32)
+    if plan.regime == 1:
+        warps = plan.block // 32
+        step = plan.grid[0] * warps
+        for first in range(step):                  # blockIdx.x * 8 + warp
+            cover[first:B:step] += 1
+        return cover
+    share = plan.stripe // 32                      # one warp's windows
+    for y in range(plan.grid[1]):
+        s0 = y * plan.stripe
+        n = min(W - s0, plan.stripe)
+        for warp in range(32):
+            lo = warp * share
+            cover[:plan.grid[0], s0 + lo:s0 + lo + max(0, min(n - lo, share))
+                  ] += 1
+    return cover
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_launch_plan_covers_every_window_once(sms):
+    """Every (row, window) of a bucket is written exactly once, shared
+    memory stays within a block's 232,448 bytes, rows not 16-byte aligned
+    (W % 4 != 0) take the int-store path, and the grid and stripe respect
+    the kernels' assumptions; on the synthetic shapes of chip_smoke.py,
+    the 32k bench path's buckets and the regime and alignment edges."""
+    import chip_smoke
+    shapes = ([(B, W) for B, W, _, _ in chip_smoke.KERNEL_CASES]
+              + BUCKET_SHAPES + EDGE_SHAPES)
+    regimes = set()
+    for B, W in shapes:
+        plan = pileup_cuda.launch_plan(B, W, sms)
+        regimes.add(plan.regime)
+        assert (_plan_cover(plan, B, W) == 1).all(), (B, W, plan)
+        assert 0 < plan.smem <= pileup_cuda.SMEM_MAX, (B, W, plan)
+        assert plan.tma_store == (W % 4 == 0), (B, W, plan)
+        assert plan.smem % 16 == 0
+        if plan.regime == 1:
+            stride = plan.smem // (4 * 2 * pileup_cuda.R1_WARPS)
+            assert stride >= W + 1 and stride % 4 == 0
+            assert plan.block == 32 * pileup_cuda.R1_WARPS
+            assert plan.grid[1] == 1 and plan.stripe == W
+            assert plan.grid[0] <= sms * 64 // pileup_cuda.R1_WARPS
+        else:
+            assert plan.block == 1024 and plan.grid[0] == B
+            assert plan.stripe % pileup_cuda.R2_ALIGN == 0
+            assert plan.stripe <= pileup_cuda.STRIPE
+            assert plan.smem >= (plan.stripe + 1) * 4
+            assert (plan.smem + pileup_cuda.R2_STATIC_SMEM
+                    <= pileup_cuda.SMEM_MAX)
+            assert plan.grid[1] <= 65535
+    assert regimes == {1, 2}
+    for B, W in BUCKET_SHAPES:  # regime 2 only for a few wide rows
+        plan = pileup_cuda.launch_plan(B, W, sms)
+        assert plan.regime == (2 if B <= 8 and W >= 2048 else 1)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 16, 66, 78, 108, 132, 144])
+@pytest.mark.parametrize("B,W", [(4096, 512), (384, 1024), (8, 2048), (5, 3),
+                                 (33, 7), (8, 1 << 16), (2, 65538),
+                                 (3, 100_001), (8, 1 << 20)])
+def test_launch_plan_tuning_inputs_keep_the_cover(sms, B, W):
+    """The plan's one tuning input, the card's SM count, keeps the cover:
+    on cards from 1 to 144 SMs every window is written once, the grid
+    stays within the resident blocks, and regime 2's stripes stay
+    aligned, between MIN_STRIPE (or the whole row) and STRIPE."""
+    plan = pileup_cuda.launch_plan(B, W, sms)
+    assert (_plan_cover(plan, B, W) == 1).all(), (B, W, plan)
+    assert plan.smem <= pileup_cuda.SMEM_MAX
+    if plan.regime == 1:
+        assert plan.grid[0] <= sms * pileup_cuda.R1_BLOCKS_PER_SM
+    else:
+        assert plan.stripe % pileup_cuda.R2_ALIGN == 0
+        assert (min(pileup_cuda.MIN_STRIPE, -(-W // 128) * 128)
+                <= plan.stripe <= pileup_cuda.STRIPE), (B, W, sms, plan)
+
+
+def test_launch_plan_regime2_fills_the_card():
+    """A wide bucket of few rows gets stripes narrow enough to give every
+    SM a block, down to MIN_STRIPE; many rows keep the widest stripe."""
+    p = pileup_cuda.launch_plan(8, 1 << 16, 132)
+    assert p.regime == 2 and p.stripe == pileup_cuda.MIN_STRIPE
+    p = pileup_cuda.launch_plan(8, 1 << 20, 132)
+    assert p.stripe == pileup_cuda.STRIPE and 8 * p.grid[1] >= 132
+    p = pileup_cuda.launch_plan(200, 1 << 16, 132)
+    assert p.stripe == pileup_cuda.STRIPE
+
+
 @pytest.mark.cuda
 def test_pileup_kernel_matches_plain_on_cuda():
     """The hand-written kernel against pileup_torch on the card, exact:
-    pack32 at a main-path shape, a W=64 tail and a multi-stripe pairs
-    tier, with empty rows, invalid events and padding."""
+    pack32 at a main-path shape, a W=64 tail, widths that take the int
+    store (W % 4 != 0) in both regimes and a multi-stripe pairs tier,
+    with empty rows, invalid events and padding."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     rng = np.random.default_rng(0)
-    for B, W in ((384, 256), (8, 64), (8, 1 << 16)):
+    for B, W in ((384, 256), (8, 64), (33, 7), (3, 2049), (2, 65538),
+                 (8, 1 << 16)):
         E = B * 40
         counts = rng.integers(0, 60, B)
         counts[::3] = 0

@@ -1,8 +1,8 @@
 """Read sharding of the torch engine (``raft_tpu_torch.parallel.mesh``) on
 CPU shards, against the unsharded torch engine and against ``raft_tpu``'s
-``shard_map`` path on the 8-virtual-CPU-device mesh (``tests/conftest.py``).
-Every compared value is integer or boolean, so the tolerance is exact
-equality."""
+``shard_map`` path on the 8-virtual-CPU-device mesh (``tests/conftest.py``),
+each side's inputs loaded or built with its own package. Every compared
+value is integer or boolean, so the tolerance is exact equality."""
 
 from __future__ import annotations
 
@@ -12,40 +12,40 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import datagen  # noqa: E402
-from raft_tpu import bucketing  # noqa: E402
+from raft_tpu import bucketing as jbucketing  # noqa: E402
 from raft_tpu import engine_jax as ej  # noqa: E402
 from raft_tpu.engine_jax import compute_jax  # noqa: E402
-from raft_tpu.io.fasta import ReadStore, load_reads  # noqa: E402
-from raft_tpu.io.paf import OverlapTable, load_paf  # noqa: E402
-from raft_tpu.params import AlgoParams  # noqa: E402
+from raft_tpu.io import fasta as jfasta  # noqa: E402
+from raft_tpu.io import paf as jpaf  # noqa: E402
 from raft_tpu.parallel import mesh as jmesh  # noqa: E402
+from raft_tpu_torch import bucketing  # noqa: E402
 from raft_tpu_torch import engine_torch as et  # noqa: E402
 from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
+from raft_tpu_torch.io.fasta import load_reads  # noqa: E402
+from raft_tpu_torch.io.paf import load_paf  # noqa: E402
 from raft_tpu_torch.parallel import mesh  # noqa: E402
-from test_torch_engine import _assert_same, _random_rows  # noqa: E402
+from test_torch_engine import (_assert_same, _mk_table,  # noqa: E402
+                               _params as _pkg_params, _PKG, _random_rows)
 
 
-def _params():
-    return AlgoParams(est_cov=10, cov_mul=1.3, repeat_length=2000,
-                      interval_length=2000, read_length=4000,
-                      flanking_length=300, overlap_length=200)
+def _params(jax=False):
+    return _pkg_params(jax, est_cov=10, cov_mul=1.3, repeat_length=2000,
+                       interval_length=2000, read_length=4000,
+                       flanking_length=300, overlap_length=200)
 
 
-def _table(rows, n, symmetric):
-    a_id, a_s, a_e, b_id, b_s, b_e = map(
-        lambda x: np.asarray(x, dtype=np.int32), zip(*rows))
-    return OverlapTable(a_id=a_id, b_id=b_id, a_start=a_s, a_end=a_e,
-                        b_start=b_s, b_end=b_e, symmetric=symmetric,
-                        n_names=n)
+def _table(rows, n, symmetric, jax=False):
+    return _mk_table(rows, jax, symmetric=symmetric, n_names=n)
 
 
-def _store(lens):
+def _store(lens, jax=False):
     lens = np.asarray(lens, dtype=np.int32)
     off = np.zeros(len(lens) + 1, dtype=np.int64)
     np.cumsum(lens.astype(np.int64), out=off[1:])
-    return ReadStore(names=[f"r{i}" for i in range(len(lens))],
-                     seq_blob=b"A" * int(lens.sum()), seq_off=off,
-                     lens=lens, real_reads=True)
+    return _PKG[jax][0].ReadStore(
+        names=[f"r{i}" for i in range(len(lens))],
+        seq_blob=b"A" * int(lens.sum()), seq_off=off, lens=lens,
+        real_reads=True)
 
 
 def test_make_devices_cpu():
@@ -87,11 +87,15 @@ def test_sharded_matches_single_and_raft_tpu(tmp_path, n_dev, seed, n_reads,
     table = load_paf(paf_path, store)
     params = _params().replace(real_reads=store.real_reads,
                                symmetric_overlaps=table.symmetric)
-    r1 = compute_torch(store, table, params)
+    r1 = compute_torch(store, table, params, device="cpu")
     rn = compute_torch(store, table, params,
                        devices=mesh.make_devices(n_dev, "cpu"))
     _assert_same(r1, rn)
-    _assert_same(rn, compute_jax(store, table, params,
+    jstore = jfasta.load_reads(reads_path)
+    jtable = jpaf.load_paf(paf_path, jstore)
+    jparams = _params(jax=True).replace(real_reads=jstore.real_reads,
+                                        symmetric_overlaps=jtable.symmetric)
+    _assert_same(rn, compute_jax(jstore, jtable, jparams,
                                  mesh=jmesh.make_mesh(n_dev)))
 
 
@@ -105,6 +109,8 @@ def test_sharded_int8_overflow_host_rebuild():
     rows += [(i, 10, 2000, (i + 2) % 16, 5, 1995) for i in range(16)]
     store, table = _store(lens), _table(rows, 16, True)
     params = _params()
+    ref = (_store(lens, jax=True), _table(rows, 16, True, jax=True),
+           _params(jax=True))
     bad_rows = []
     devs = mesh.make_devices(8, "cpu")
 
@@ -113,12 +119,11 @@ def test_sharded_int8_overflow_host_rebuild():
         bad_rows.append(int((et.unpack_out(out["packed"].numpy(), cfg)
                              ["ok8"] == 0).sum()))
 
-    r1 = compute_torch(store, table, params, cov_out="diff8")
+    r1 = compute_torch(store, table, params, cov_out="diff8", device="cpu")
     r8 = compute_torch(store, table, params, cov_out="diff8", devices=devs,
                        on_bucket=count_overflow)
     rh = compute_torch(store, table, params, cov_out="host", devices=devs)
-    rj = compute_jax(store, table, params, mesh=jmesh.make_mesh(8),
-                     cov_out="diff8")
+    rj = compute_jax(*ref, mesh=jmesh.make_mesh(8), cov_out="diff8")
     assert sum(bad_rows) == 3 and len(bad_rows) == 8
     _assert_same(r1, r8)
     _assert_same(r8, rj)
@@ -138,37 +143,41 @@ def test_sharded_ultralong_pairs_tier():
     rows = _random_rows(rng, lens, 400)
     # qualifying repeat run deep inside an ultralong read
     rows += [(0, 1_500_000, 1_540_000, 1, 0, 40_000)] * 30
+    kw = dict(est_cov=5, cov_mul=1.2, repeat_length=10000,
+              interval_length=10000, read_length=20000, overlap_length=500,
+              flanking_length=1000)
     store, table = _store(lens), _table(rows, 8, False)
-    params = AlgoParams(est_cov=5, cov_mul=1.2, repeat_length=10000,
-                        interval_length=10000, read_length=20000,
-                        overlap_length=500, flanking_length=1000)
+    params = _pkg_params(**kw)
     seen = []
     r8 = compute_torch(store, table, params,
                        devices=mesh.make_devices(8, "cpu"),
                        on_bucket=lambda cfg, *a: seen.append(cfg))
     assert any(c.ev_pack == 0 for c in seen)
     assert len(r8.rep_s) > 0
-    _assert_same(compute_torch(store, table, params), r8)
-    _assert_same(r8, compute_jax(store, table, params,
+    _assert_same(compute_torch(store, table, params, device="cpu"), r8)
+    _assert_same(r8, compute_jax(_store(lens, jax=True),
+                                 _table(rows, 8, False, jax=True),
+                                 _pkg_params(jax=True, **kw),
                                  mesh=jmesh.make_mesh(8)))
 
 
-def _bucket(seed, n_reads, max_len=9000, sparse=False):
+def _bucket(seed, n_reads, max_len=9000, sparse=False, jax=False):
     """One bucket from random reads and overlaps, as compute_torch makes
-    it (the largest one when iter_buckets gives several). ``sparse``:
-    a handful of overlaps, so shards hold fewer events than the 64-slot
-    minimum slab."""
+    it (the largest one when iter_buckets gives several), through the
+    port's host layer or, with ``jax``, raft_tpu's. ``sparse``: a handful
+    of overlaps, so shards hold fewer events than the 64-slot minimum
+    slab."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(300, max_len, n_reads).astype(np.int32)
     rows = _random_rows(rng, lens, 5 if sparse else 12 * n_reads)
     if not sparse:
         rows += [(r, 0, int(lens[r]), (r + 1) % n_reads, 0, int(lens[r]))
                  for r in range(0, n_reads, 3) for _ in range(25)]
-    table = _table(rows, n_reads, False)
+    table = _table(rows, n_reads, False, jax)
     ev_read, ev_lo, ev_hi = table.events(n_reads)
     order = np.argsort(ev_read, kind="stable")
-    bks = bucketing.make_buckets(lens, ev_read[order], ev_lo[order],
-                                 ev_hi[order], _params().reso)
+    bks = (jbucketing if jax else bucketing).make_buckets(
+        lens, ev_read[order], ev_lo[order], ev_hi[order], _params(jax).reso)
     return max(bks, key=lambda b: b.n_used)
 
 
@@ -178,9 +187,10 @@ def _bucket(seed, n_reads, max_len=9000, sparse=False):
 def test_shard_bucket_equals_raft_tpu(seed, sparse, n_shards):
     """The port's copy of shard_bucket gives raft_tpu's arrays, field for
     field, dtype included."""
-    bk = _bucket(seed, 20 + 7 * seed, sparse=sparse)
-    got = mesh.shard_bucket(bk, n_shards)
-    want = jmesh.shard_bucket(bk, n_shards)
+    got = mesh.shard_bucket(_bucket(seed, 20 + 7 * seed, sparse=sparse),
+                            n_shards)
+    want = jmesh.shard_bucket(
+        _bucket(seed, 20 + 7 * seed, sparse=sparse, jax=True), n_shards)
     for f in ("B", "W", "E", "n_used"):
         assert getattr(got, f) == getattr(want, f), f
     for f in ("read_ids", "lens", "ev_row", "ev_w0", "ev_w1", "ev_off"):
@@ -192,7 +202,7 @@ def test_shard_bucket_equals_raft_tpu(seed, sparse, n_shards):
 def _jax_step(bk, n_shards):
     """raft_tpu's sharded step on the n-device mesh; host outputs."""
     import jax.numpy as jnp
-    params = _params()
+    params = _params(jax=True)
     sbk = jmesh.shard_bucket(bk, n_shards)
     cfg = ej.derive_cfg(sbk.B // n_shards, sbk.W, sbk.E // n_shards, params)
     out = jmesh.sharded_device_step(jmesh.make_mesh(n_shards))(
@@ -227,7 +237,7 @@ def test_all_padding_tail_shards():
     one = et.device_step(*et.bucket_to_device(bk, cfg1, "cpu"), cfg=cfg1)
     np.testing.assert_array_equal(out["packed"][:17],
                                   one["packed"].numpy()[:17])
-    jpacked, jrep = _jax_step(bk, 8)
+    jpacked, jrep = _jax_step(_bucket(5, 17, jax=True), 8)
     np.testing.assert_array_equal(out["packed"], jpacked)
     assert out["global_rep_len"] == jrep
 
@@ -242,6 +252,7 @@ def test_global_rep_len_is_the_packed_column_sum(n_shards):
     one = et.device_step(*et.bucket_to_device(bk, cfg1, "cpu"), cfg=cfg1)
     want = int(one["packed"][:, et.rep_len_sum_col(cfg1)].sum())
     assert want > 0
-    assert out["global_rep_len"] == want == _jax_step(bk, n_shards)[1]
+    assert out["global_rep_len"] == want == _jax_step(
+        _bucket(11, 40, jax=True), n_shards)[1]
     assert et.rep_len_sum_col(cfg) == ej.rep_len_sum_col(
-        ej.derive_cfg(cfg.B, cfg.W, cfg.E, _params()))
+        ej.derive_cfg(cfg.B, cfg.W, cfg.E, _params(jax=True)))

@@ -14,10 +14,12 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from raft_tpu import bucketing  # noqa: E402
+from raft_tpu import bucketing as jbucketing  # noqa: E402
 from raft_tpu import engine_jax as ej  # noqa: E402
-from raft_tpu.params import AlgoParams  # noqa: E402
+from raft_tpu.params import AlgoParams as JAlgoParams  # noqa: E402
+from raft_tpu_torch import bucketing  # noqa: E402
 from raft_tpu_torch import engine_torch as et  # noqa: E402
+from raft_tpu_torch.params import AlgoParams  # noqa: E402
 from test_kernels import rand_case  # noqa: E402
 
 
@@ -29,6 +31,13 @@ def _eq(want, got, msg=""):
     """Exact equality of a JAX array and a torch tensor."""
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
                                   err_msg=msg)
+
+
+def _buckets(*args):
+    """The same bucketing through each package: (port bucket, raft_tpu
+    bucket) pairs."""
+    return zip(bucketing.make_buckets(*args), jbucketing.make_buckets(*args),
+               strict=True)
 
 
 def _jax_cfg(tcfg):
@@ -49,12 +58,12 @@ SLOT_PARAMS = [
 def test_derive_cfg_matches_jax(reso, rl, il, l):
     """M/K/F and every parameter field equal engine_jax.derive_cfg's; the
     wire format is pack32 wherever JAX packs into 32 bits or fewer."""
-    params = AlgoParams(est_cov=4, cov_mul=1.0, reso=reso, repeat_length=rl,
-                        interval_length=il, read_length=l,
-                        flanking_length=0, overlap_length=0)
+    kw = dict(est_cov=4, cov_mul=1.0, reso=reso, repeat_length=rl,
+              interval_length=il, read_length=l, flanking_length=0,
+              overlap_length=0)
     for W in (8, 64, 256, 32768, 1 << 16, 1 << 20):
-        t = et.derive_cfg(8, W, 64, params)
-        j = ej.derive_cfg(8, W, 64, params)
+        t = et.derive_cfg(8, W, 64, AlgoParams(**kw))
+        j = ej.derive_cfg(8, W, 64, JAlgoParams(**kw))
         for f in dataclasses.fields(t):
             if f.name != "ev_pack":
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
@@ -77,11 +86,12 @@ def test_rows_from_offsets_matches_jax(seed):
             ev_lo.append(int(rng.integers(0, lens[r])))
     ev_read = np.asarray(ev_read, dtype=np.int32)
     ev_lo = np.asarray(ev_lo, dtype=np.int32)
-    for bk in bucketing.make_buckets(lens, ev_read, ev_lo, ev_lo, 50):
+    for bk, jbk in _buckets(lens, ev_read, ev_lo, ev_lo, 50):
         cfg = et.derive_cfg(bk.B, bk.W, bk.E, AlgoParams(est_cov=5))
         got = et.rows_from_offsets(_t(bk.ev_off), cfg)
         assert got.dtype == torch.int32
-        _eq(ej.rows_from_offsets(jnp.asarray(bk.ev_off), _jax_cfg(cfg)), got)
+        _eq(ej.rows_from_offsets(jnp.asarray(jbk.ev_off), _jax_cfg(cfg)),
+            got)
         _eq(bk.ev_row.astype(np.int32), got)
 
 
@@ -116,13 +126,13 @@ def test_pileup_diff_scatter_matches_jax(seed):
     rng = np.random.default_rng(seed)
     params = AlgoParams(est_cov=10, reso=50)
     lens, ev_read, ev_lo, ev_hi = rand_case(rng)
-    for bk in bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50):
+    for bk, jbk in _buckets(lens, ev_read, ev_lo, ev_hi, 50):
         cfg = et.derive_cfg(bk.B, bk.W, bk.E, params)
         cov, diff = et.pileup_diff_scatter(_t(bk.ev_row), _t(bk.ev_w0),
                                            _t(bk.ev_w1), cfg)
         jcov, jdiff = ej.pileup_diff_scatter(
-            jnp.asarray(bk.ev_row), jnp.asarray(bk.ev_w0),
-            jnp.asarray(bk.ev_w1), _jax_cfg(cfg))
+            jnp.asarray(jbk.ev_row), jnp.asarray(jbk.ev_w0),
+            jnp.asarray(jbk.ev_w1), _jax_cfg(cfg))
         assert cov.dtype == diff.dtype == torch.int32
         _eq(jcov, cov, f"W={bk.W}")
         _eq(jdiff, diff, f"W={bk.W}")
@@ -188,21 +198,21 @@ def test_device_step_packed_matches_jax(seed, rl, il, l, ov, flank):
     """The packed [B, 2K+2F+5] int32 output, column for column, with each
     engine fed its own wire format from the same bucket."""
     rng = np.random.default_rng(seed)
-    params = AlgoParams(est_cov=3, cov_mul=1.2, repeat_length=rl,
-                        interval_length=il, read_length=l,
-                        overlap_length=ov, flanking_length=flank)
+    kw = dict(est_cov=3, cov_mul=1.2, repeat_length=rl, interval_length=il,
+              read_length=l, overlap_length=ov, flanking_length=flank)
+    params = AlgoParams(**kw)
     lens, ev_read, ev_lo, ev_hi = rand_case(rng, n_reads=40, max_len=30000,
                                             max_ev_per_read=40)
-    for bk in bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50):
+    for bk, jbk in _buckets(lens, ev_read, ev_lo, ev_hi, 50):
         cfg = et.derive_cfg(bk.B, bk.W, bk.E, params)
         out = et.device_step(*et.bucket_to_device(bk, cfg, "cpu"), cfg=cfg)
         assert set(out) == {"packed"}  # host mode: one D2H array
         got = out["packed"]
-        jcfg = ej.derive_cfg(bk.B, bk.W, bk.E, params, use_pallas=False,
-                             cov_out="host")
+        jcfg = ej.derive_cfg(jbk.B, jbk.W, jbk.E, JAlgoParams(**kw),
+                             use_pallas=False, cov_out="host")
         want = ej.device_step(
-            jnp.asarray(bk.lens), jnp.asarray(bk.ev_off),
-            jnp.asarray(ej.pack_events(bk.ev_w0, bk.ev_w1, jcfg)),
+            jnp.asarray(jbk.lens), jnp.asarray(jbk.ev_off),
+            jnp.asarray(ej.pack_events(jbk.ev_w0, jbk.ev_w1, jcfg)),
             cfg=jcfg)["packed"]
         assert got.dtype == torch.int32
         assert tuple(got.shape) == (bk.B, et.packed_width(cfg))

@@ -1,7 +1,8 @@
 """The port's chunked streaming schedule and PAF spill against raft_tpu's
 (JAX on the CPU) on the tests/datagen.py fixtures of
 tests/test_streaming.py, with the same flags: the four output files must
-be byte-equal, so the tolerance is exact equality."""
+be byte-equal, so the tolerance is exact equality. Each side takes its
+parameters from its own package."""
 
 from __future__ import annotations
 
@@ -13,20 +14,20 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import datagen  # noqa: E402
-from raft_tpu import emit  # noqa: E402
 from raft_tpu import pipeline as tpu_pipeline  # noqa: E402
-from raft_tpu.params import AlgoParams  # noqa: E402
+from raft_tpu.params import AlgoParams as JAlgoParams  # noqa: E402
+from raft_tpu_torch import emit  # noqa: E402
 from raft_tpu_torch import pipeline as port_pipeline  # noqa: E402
+from raft_tpu_torch.params import AlgoParams  # noqa: E402
 
 OUTS = [".reads.fasta", ".coverage.txt", ".long_repeats.txt",
         ".long_repeats.bed"]
 
 
-def _params(tmp, name):
-    return AlgoParams(est_cov=10, cov_mul=1.3, repeat_length=2000,
-                      interval_length=2000, read_length=4000,
-                      flanking_length=300, overlap_length=200,
-                      outputfilename=f"{tmp}/{name}")
+def _params(tmp, name, cls=AlgoParams):
+    return cls(est_cov=10, cov_mul=1.3, repeat_length=2000,
+               interval_length=2000, read_length=4000, flanking_length=300,
+               overlap_length=200, outputfilename=f"{tmp}/{name}")
 
 
 def _port(reads, paf, tmp, name, **kw):
@@ -35,7 +36,8 @@ def _port(reads, paf, tmp, name, **kw):
 
 
 def _tpu(reads, paf, tmp, name, **kw):
-    return tpu_pipeline.run_pipeline(reads, paf, _params(tmp, name),
+    return tpu_pipeline.run_pipeline(reads, paf,
+                                     _params(tmp, name, JAlgoParams),
                                      engine="jax", verbose=False, **kw)
 
 
