@@ -10,10 +10,11 @@ before getopt sees them:
 ``--trace DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
 ``--devices N`` shards the reads over ``parallel.mesh.make_devices(N,
 --device)``: the first N cards (fewer if fewer exist), or N shards on the
-CPU; 0 runs unsharded. ``--pallas``/``--no-pallas``, which this package
-does not carry, exit 1 with an error instead of being ignored. stdout is
-line-identical to ``raft_tpu.cli`` apart from the wall-time and ``CMD:``
-lines.
+CPU; 0 runs unsharded. ``--pallas``/``--no-pallas`` are accepted and
+change nothing: there is one pileup, the CUDA kernel on ``--device cuda``
+and its plain twin on ``--device cpu``, as ``raft_tpu`` runs its one
+scatter pileup either way off a TPU. stdout is line-identical to
+``raft_tpu.cli`` apart from the wall-time and ``CMD:`` lines.
 """
 
 from __future__ import annotations
@@ -287,7 +288,8 @@ raft_tpu_torch extensions (not part of the reference surface):
   --trace DIR             write a torch.profiler Chrome trace into DIR
   --devices N             shard the reads over the first N CUDA devices
                           (N shards with --device cpu; 0 = unsharded)
-Not yet supported (exit 1): --pallas/--no-pallas.
+  --pallas / --no-pallas  accepted for raft_tpu command lines; both run
+                          the one pileup (the CUDA kernel on the card)
 """
 
 _OWN = {"--device": ("cuda", "cpu"), "--engine": ("torch", "oracle")}
@@ -318,14 +320,6 @@ def _strip_own_options(argv: list[str]):
     return got, rest
 
 
-def _unsupported(extras: dict) -> list[str]:
-    """The raft_tpu options in ``extras`` that this package does not carry
-    yet."""
-    if extras["pallas"] is not None:
-        return ["--pallas" if extras["pallas"] else "--no-pallas"]
-    return []
-
-
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--help" in argv or "--help-extended" in argv:
@@ -338,11 +332,6 @@ def main(argv: list[str] | None = None) -> int:
         print(f"ERROR, {e}", file=sys.stderr)
         return 1
     params, reads_path, paf_path, extras = parse_args(rest)
-    bad = _unsupported(extras)
-    if bad:
-        print(f"ERROR, {bad[0]} is not yet supported by raft_tpu_torch",
-              file=sys.stderr)
-        return 1
     engine, device = own["--engine"], own["--device"]
     if engine == "torch" and device == "cuda":
         import torch

@@ -129,15 +129,15 @@ def test_pure_python_io_and_oracle_engine(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--pallas"], ["--no-pallas"]],
                          ids=lambda f: "_".join(f))
-def test_unsupported_flag_exits_1(tmp_path, capsys, flag):
+def test_pallas_flags_byte_equal(tmp_path, capsys, flag):
+    """--pallas and --no-pallas are accepted: files byte-equal and stdout
+    line-equal to raft_tpu.cli with the same flag (off a TPU raft_tpu runs
+    its scatter pileup either way, the port its one pileup)."""
     reads, paf = datagen.standard_case(seed=15, tmpdir=str(tmp_path),
-                                       n_reads=5)
-    rc, out, err = _run(port_cli.main, [*ARGS, *flag, "--device", "cpu",
-                                        reads, paf], tmp_path, capsys)
-    assert rc == 1
-    assert f"ERROR, {flag[0]} is not yet supported by raft_tpu_torch" in err
-    assert out == ""
-    assert not (tmp_path / "200.reads.fasta").exists()
+                                       n_reads=25)
+    _, out, err = _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf],
+                                   extra=flag)
+    assert "ERROR" not in err and out
 
 
 @pytest.mark.parametrize("flag", [
