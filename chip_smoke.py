@@ -57,7 +57,8 @@
    those are the timed run's buckets. Last, ``--chunk-reads 0 --device
    cpu``. The four files of all seven runs must be equal: each run's
    outputs are hashed (SHA-256) and deleted, so the disk holds the inputs
-   plus one run's outputs (about 6 GB). The dataset is deleted after.
+   plus one run's outputs (about 6 GB). The dataset and the last run's
+   outputs stay for step 10d.
 9. The ground-truth evaluation (``raft_tpu_torch.tools.eval_repeats``)
    on the card, every point counting its own pileup launches (reset just
    before, read just after: one per bucket of the product run and of the
@@ -83,14 +84,36 @@
       ``compute_torch`` pass's buckets), every bucket held against the
       plain twin and the outputs SHA-256-equal; and the point again with
       ``--device cpu``: the same row and outputs (about 8 GB of disk).
-10. Checks that neither jax nor any ``raft_tpu`` module was imported,
+10. The measurement entry points, each run as a user runs it:
+   a. ``raft_tpu_torch.bench`` at 32k (its own ``gen_dataset``, byte-equal
+      to step 4's), warm-up and ``HARNESS_ROUNDS`` rounds, its CPU
+      ablation off (step 4 ran ``--device cpu``): ``pileup_ok`` true,
+      the card's names in its line, its files SHA-256-equal to step 4's,
+      and the kernel launched once per bucket of every run plus once for
+      the parity check;
+   b. ``tools/bench_fetch`` at 32k: step 4's bucket count, nine launches
+      per bucket (warm-up, three timed runs, the outputs to fetch, the
+      engine-like warm-up and three timed runs);
+   c. ``tools/bench_pileup`` at 32k: every bucket exact, each launched
+      once to warm up and ``LAUNCHES`` times a round;
+   d. ``tools/bench_chunk`` on step 8's 100k dataset, auto-stream (4
+      chunks), its outputs equal to step 8's (``all_equal``);
+   e. ``tools/bench_scale`` at ``SCALE_READS`` reads x ``SCALE_ROWS``
+      rows, ``--chunk SCALE_CHUNK``; then ``tools/bench_gz_scale`` on its
+      dataset: plain, gz and BGZF. Both ``all_equal``.
+   a-c run in this process after step 9; d-e start the CLI in fresh
+   processes from a thread that runs beside step 9 (its walls and theirs
+   are taken on a shared host), and every such run's ``--stats-json``
+   must name ``cuda:0`` and report one pileup launch per bucket.
+11. Checks that neither jax nor any ``raft_tpu`` module was imported,
    prints the kernel table as one JSON line, then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 Every CLI run on the card (steps 4-8) counts its own pileup launches
 (reset just before, read just after) and must have launched the kernel
 once per bucket it reports; it prints its wall, reads/s, stage seconds
-and peak ``torch.cuda.max_memory_allocated``.
+and peak ``torch.cuda.max_memory_allocated``. So does every entry point
+of step 10 that runs in this process.
 
 Only ``raft_tpu_torch`` is imported; its native I/O builds with fixed
 flags, whatever the environment's ``CXX``, ``CXXFLAGS`` and ``LDFLAGS``.
@@ -121,14 +144,18 @@ import dataclasses
 import filecmp
 import hashlib
 import importlib.util
+import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from contextlib import redirect_stdout
 
 N_READS = 32000          # bench.py's headline dataset
 N_BIG = 100_000          # streaming dataset: ~2.4 GB FASTA, over the gate
@@ -137,6 +164,8 @@ BIG_CHUNKS = 4           # ceil(100000 / DEFAULT_CHUNK_READS = 32768)
 SPILL_CHUNK = 8192
 N_SHARDS = 4             # shards on one card (step 6b)
 SHARD_CHUNK = 8192
+HARNESS_ROUNDS = 3       # step 10a: raft_tpu_torch.bench's timed rounds
+SCALE_READS, SCALE_ROWS, SCALE_CHUNK = 20_000, 30, 8192  # step 10e
 # run-time overrides the run must not inherit
 RAFT_ENV = ("RAFT_AUTO_CHUNK_BYTES", "RAFT_COV_OUT", "RAFT_CHUNK_TRACE")
 # The H100 SXM's peaks at 700 W: HBM bytes/s (NVIDIA's data sheet), and
@@ -1030,6 +1059,208 @@ def eval_phase(torch, np, pipeline, pileup_cuda, work, times):
     return by_path, held
 
 
+def tool_in_process(main, argv, env):
+    """An entry point's ``main(argv)`` in this process, with ``env`` set
+    for the call: (its exit code, its JSON line). Its stdout is captured
+    and printed after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None)
+
+
+class Beside:
+    """``fn(self, *args)`` in a thread beside the caller's work. ``join``
+    returns what it returned, or raises what it raised (a failed check
+    included); ``stop`` kills the processes it started through ``run``,
+    each with its own children (a session of its own), and lets it start
+    no more."""
+
+    def __init__(self, fn, *args):
+        self.procs, self.box = [], {}
+        self.lock, self.stopped = threading.Lock(), False
+
+        def body():
+            try:
+                self.box["out"] = fn(self, *args)
+            except BaseException as e:  # re-raised by join
+                self.box["err"] = e
+        self.thread = threading.Thread(target=body)
+        self.thread.start()
+
+    def run(self, argv, **kw):
+        with self.lock:
+            check(not self.stopped, "stopped")
+            p = subprocess.Popen(argv, start_new_session=True, **kw)
+            self.procs.append(p)
+        return p
+
+    def stop(self):
+        with self.lock:
+            self.stopped = True
+            for p in self.procs:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+
+    def join(self):
+        self.thread.join()
+        if "err" in self.box:
+            raise self.box["err"]
+        return self.box["out"]
+
+
+def tool_process(beside, env, module, args, label):
+    """``python -m module args`` in a fresh process from the repository
+    root with ``env``, started by ``beside``: its JSON line; fails unless
+    it exits 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = beside.run([sys.executable, "-m", module, *args], cwd=root,
+                   env={**env, "PYTHONPATH": root}, stdout=subprocess.PIPE,
+                   stderr=subprocess.PIPE, text=True)
+    out, err = p.communicate(timeout=900)
+    check(p.returncode == 0, f"{label}: exit {p.returncode}\n{err[-3000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    print(f"{label}: {time.perf_counter() - t0:.1f} s; {json.dumps(line)}")
+    return line
+
+
+def on_card(run: dict, label: str) -> int:
+    """A fresh process's CLI run, from its ``--stats-json``: on
+    ``cuda:0``, one pileup launch per bucket. Returns the launches."""
+    check(run["devices"] == ["cuda:0"]
+          and run["pileup_launches"] == run["n_buckets"] > 0,
+          f"{label}: devices {run['devices']}, {run['pileup_launches']} "
+          f"launches for {run['n_buckets']} buckets")
+    return run["pileup_launches"]
+
+
+def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
+    """Step 10a-c: the entry points that run in this process. ``want`` is
+    the 32k run's digest and ``n_buckets`` its bucket count. Returns the
+    launches by path."""
+    from raft_tpu_torch import bench
+    from raft_tpu_torch.tools import bench_fetch, bench_pileup
+    by_path = {}
+    hw = os.path.join(work, "harness")
+    env = {"RAFT_BENCH_DIR": hw, "RAFT_BENCH_READS": str(N_READS),
+           "RAFT_BENCH_ROUNDS": str(HARNESS_ROUNDS),
+           "RAFT_BENCH_CPU_ABLATION": "0"}
+
+    # a. the headline benchmark
+    label = f"32k raft_tpu_torch.bench, {HARNESS_ROUNDS} rounds"
+    torch.cuda.synchronize()
+    pileup_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc, line = tool_in_process(bench.main, [], env)
+    launches = pileup_cuda.launches
+    print(f"{label}: {time.perf_counter() - t0:.1f} s; {json.dumps(line)}")
+    check(rc == 0 and line["pileup_ok"] is True
+          and line["rounds"] == HARNESS_ROUNDS and line["n_reads"] == N_READS
+          and line["device_name"] == name
+          and line["nvidia_smi"] == smi.strip().splitlines()[0],
+          f"{label}: exit {rc}, line {line}")
+    check(launches == (1 + HARNESS_ROUNDS) * n_buckets + 1,
+          f"{label}: {launches} pileup launches, not (1 + "
+          f"{HARNESS_ROUNDS}) x {n_buckets} + 1")
+    check(digest_and_remove(os.path.join(hw, "ours")) == want,
+          f"{label}: outputs differ from step 4's")
+    print(f"{label}: {launches} pileup launches (= (1 + {HARNESS_ROUNDS}) x "
+          f"{n_buckets} buckets + 1 parity check); outputs == step 4's")
+    by_path[label] = launches
+
+    # b. the transfer decomposition
+    label = "32k tools.bench_fetch"
+    pileup_cuda.launches = 0
+    rc, line = tool_in_process(bench_fetch.main, [], env)
+    launches = pileup_cuda.launches
+    print(f"{label}: {launches} pileup launches; {json.dumps(line)}")
+    check(rc == 0 and line["n_buckets"] == n_buckets
+          and launches == 9 * n_buckets,
+          f"{label}: exit {rc}, {line.get('n_buckets')} buckets, "
+          f"{launches} launches")
+    by_path[label] = launches
+
+    # c. the kernel against its plain twin, bucket by bucket
+    label = "32k tools.bench_pileup"
+    pileup_cuda.launches = 0
+    rc, line = tool_in_process(bench_pileup.main, [], env)
+    launches = pileup_cuda.launches
+    rows = line["shapes"]
+    for r in rows:
+        print(f"{label} B={r['B']} W={r['W']} E={r['E']}: kernel "
+              f"{r['kernel_s'] * 1e6:.1f} us, plain {r['plain_s'] * 1e6:.1f} "
+              f"us a call (host wall), spread {r['spread']}, equal "
+              f"{r['outputs_equal']}")
+    check(rc == 0 and line["outputs_equal"] and len(rows) == n_buckets
+          and all(r["outputs_equal"] for r in rows),
+          f"{label}: exit {rc}, {len(rows)} shapes, not all equal")
+    per = 1 + line["rounds"] * bench_pileup.LAUNCHES
+    check(launches == per * n_buckets,
+          f"{label}: {launches} launches, not {per} x {n_buckets}")
+    print(f"{label}: all {len(rows)} buckets exact; {launches} launches")
+    by_path[label] = launches
+    shutil.rmtree(hw)
+    return by_path
+
+
+def tools_phase(beside, env, work, big, big_expect):
+    """Step 10d-e: the entry points that start the CLI in fresh
+    processes, all started by ``beside`` with ``env`` (taken before the
+    thread starts: this process changes its own environment meanwhile).
+    ``big`` is step 8's 100k inputs and ``big_expect`` the prefix of its
+    outputs (removed here with the inputs). Returns the launches by
+    path."""
+    by_path = {}
+    # d. the chunked wall decomposition on step 8's dataset
+    label = "100k tools.bench_chunk (auto-stream)"
+    cw = os.path.join(work, "bench_chunk")
+    line = tool_process(beside, env, "raft_tpu_torch.tools.bench_chunk",
+                        ["--reads", big[0], "--paf", big[1], "--workdir", cw,
+                         "--expect", big_expect], label)
+    check(line["all_equal"] is True and line["n_chunks"] == BIG_CHUNKS,
+          f"{label}: all_equal {line.get('all_equal')}, "
+          f"{line['n_chunks']} chunks")
+    by_path[label] = on_card(line, label)
+    shutil.rmtree(cw)
+    for f in [*big, *(big_expect + ext for ext in OUTS)]:
+        os.remove(f)
+
+    # e. the scale runner, then gz and BGZF inputs on its dataset
+    sd = os.path.join(work, "scale")
+    label = f"{SCALE_READS // 1000}k tools.bench_scale"
+    line = tool_process(beside, env, "raft_tpu_torch.tools.bench_scale",
+                        ["--reads", str(SCALE_READS), "--rows-per-read",
+                         str(SCALE_ROWS), "--chunk", str(SCALE_CHUNK),
+                         "--dir", sd], label)
+    check(line["all_equal"] is True, f"{label}: outputs differ")
+    for run in ("whole", "chunked"):
+        by_path[f"{label}, {run}"] = on_card(line[run], f"{label}, {run}")
+    tag = os.path.join(sd, f"scale{SCALE_READS}")
+    label = f"{SCALE_READS // 1000}k tools.bench_gz_scale"
+    line = tool_process(beside, env, "raft_tpu_torch.tools.bench_gz_scale",
+                        ["--reads", tag + ".reads.fasta", "--paf",
+                         tag + ".overlaps.paf", "--dir",
+                         os.path.join(sd, "gz")], label)
+    check(line["all_equal"] is True, f"{label}: outputs differ")
+    for run in ("plain", "gz", "bgzf"):
+        by_path[f"{label}, {run}"] = on_card(line[run], f"{label}, {run}")
+    shutil.rmtree(sd)
+    return by_path
+
+
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1295,7 +1526,7 @@ def main(argv: list[str]) -> int:
         os.remove(cpre + ".json")
         check(st["schedule"] == "whole" and st["n_reads"] == N_BIG,
               f"{label}: {st['schedule']}, {st['n_reads']} reads")
-        digests[label] = digest_and_remove(cpre)
+        digests[label] = digest(cpre)
         print(f"{label}: wall {wall:.3f} s, {N_BIG / wall:.1f} reads/s, "
               "stages " + json.dumps({k: round(v, 3) for k, v
                                       in st["stage_seconds"].items()}))
@@ -1305,13 +1536,22 @@ def main(argv: list[str]) -> int:
         print(f"100k: auto-stream == whole-file == spill on cuda, timed and "
               f"held, == whole-file on cpu ({len(digests)} runs, 4 files, "
               f"SHA-256 {first['.reads.fasta'][:16]}...)")
-        for f in big:
-            os.remove(f)
 
-        # 9. the ground-truth evaluation on the card
-        eval_paths, eval_rows = eval_phase(torch, np, pipeline, pileup_cuda,
-                                           work, big_times)
-        by_path.update(eval_paths)
+        # 10d-e start beside step 9: fresh processes on a shared card
+        beside = Beside(tools_phase, dict(os.environ), work, big, cpre)
+        try:
+            # 9. the ground-truth evaluation on the card
+            eval_paths, eval_rows = eval_phase(torch, np, pipeline,
+                                               pileup_cuda, work, big_times)
+            by_path.update(eval_paths)
+            # 10a-c. the measurement entry points in this process
+            by_path.update(harness_phase(torch, pileup_cuda, name, smi,
+                                         work, want, len(shapes)))
+        except BaseException:
+            beside.stop()
+            beside.thread.join()
+            raise
+        by_path.update(beside.join())
 
     return report(torch, name, "32k whole-file", by_path, real,
                   kcases + real + big_rows + shard_rows + rank_rows

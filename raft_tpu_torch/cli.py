@@ -5,7 +5,10 @@ before getopt sees them:
 
 * ``--device {cuda,cpu}`` (default cuda): where the torch engine runs. A
   missing CUDA device is an error, never a quiet switch to the CPU.
-* ``--engine {torch,oracle}`` (default torch).
+* ``--engine {torch,jax,oracle}`` (default torch). ``jax``, ``raft_tpu``'s
+  name for its device engine and its default, is taken as the port's
+  device engine, the torch engine, so a ``raft_tpu`` command line runs
+  unchanged.
 
 ``--trace DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
 ``--devices N`` shards the reads over ``parallel.mesh.make_devices(N,
@@ -266,7 +269,10 @@ _HELP = """
 raft_tpu_torch extensions (not part of the reference surface):
   --device {cuda,cpu}     where the torch engine runs (default cuda;
                           no CUDA device is an error)
-  --engine {torch,oracle} compute engine (default torch)
+  --engine {torch,jax,oracle}
+                          compute engine (default torch); jax, raft_tpu's
+                          name for its device engine, runs the torch
+                          engine
   --auto-e                estimate est_cov (-e) from the data
   --no-strict             drop out-of-bounds/unknown-read PAF rows
                           instead of erroring
@@ -292,7 +298,9 @@ raft_tpu_torch extensions (not part of the reference surface):
                           the one pileup (the CUDA kernel on the card)
 """
 
-_OWN = {"--device": ("cuda", "cpu"), "--engine": ("torch", "oracle")}
+_OWN = {"--device": ("cuda", "cpu"), "--engine": ("torch", "jax", "oracle")}
+# raft_tpu's engine names -> the port's: its device engine is the torch one
+_ENGINE = {"jax": "torch"}
 
 
 def _strip_own_options(argv: list[str]):
@@ -332,7 +340,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"ERROR, {e}", file=sys.stderr)
         return 1
     params, reads_path, paf_path, extras = parse_args(rest)
-    engine, device = own["--engine"], own["--device"]
+    engine = _ENGINE.get(own["--engine"], own["--engine"])
+    device = own["--device"]
     if engine == "torch" and device == "cuda":
         import torch
         if not torch.cuda.is_available():

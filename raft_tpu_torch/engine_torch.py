@@ -405,7 +405,11 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     ``devices`` (a list of torch devices, the counterpart of ``mesh=``)
     shards every bucket over them as contiguous row ranges
     (``parallel.mesh.shard_bucket`` and ``sharded_device_step``) and
-    takes the place of ``device``; the result is the same.
+    takes the place of ``device``; the result is the same. Every bucket
+    goes through ``sharded_device_step``, over ``[device]`` when no
+    devices are given, so the stage timers mean one thing either way:
+    ``h2d`` ends when every shard's inputs are on its device, ``step``
+    holds the device steps, their D2H and the host's ``diff8`` rebuild.
 
     Each bucket is one H2D copy, one ``device_step`` on the current
     stream and its D2H copies: the packed array alone in ``host`` mode,
@@ -494,29 +498,21 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         w0s = w1s = ev_off_g = None
         cov_flat = np.empty(int(cov_off[-1]), dtype=np.int32)
 
-    n_shards = len(devices) if devices else 1
-    if devices:
-        from raft_tpu_torch.parallel.mesh import (shard_bucket,
-                                                  sharded_device_step)
-        step = sharded_device_step(devices)
+    from raft_tpu_torch.parallel.mesh import shard_bucket, sharded_device_step
+    devices = devices or [device]
+    n_shards = len(devices)
+    step = sharded_device_step(devices)
     outs = []
     for bk in bucketing.iter_buckets(lens, ev_read, ev_lo, ev_hi, reso,
                                      presorted=True, prebinned=prebinned):
         if n_shards > 1:
             bk = shard_bucket(bk, n_shards)
-        # with devices, cfg describes ONE shard
+        # cfg describes ONE shard
         cfg = derive_cfg(bk.B // n_shards, bk.W, bk.E // n_shards, params,
                          cov_out=mode)
         mark("bucket_prep")
-        if devices:
-            host = step(*host_inputs(bk, cfg), cfg=cfg, on_bucket=on_bucket)
-        else:
-            args = bucket_to_device(bk, cfg, device)
-            mark("h2d")
-            if on_bucket is not None:
-                on_bucket(cfg, *args)
-            host = {k: v.cpu().numpy()
-                    for k, v in device_step(*args, cfg=cfg).items()}
+        host = step(*host_inputs(bk, cfg), cfg=cfg, on_bucket=on_bucket,
+                    on_h2d=lambda: mark("h2d"))
         out = unpack_out(host["packed"], cfg)
         if "diff8" in host:
             cov = np.cumsum(host["diff8"], axis=1, dtype=np.int32)

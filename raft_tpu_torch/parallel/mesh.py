@@ -104,24 +104,30 @@ def sharded_device_step(devices):
     allocations (the pairs kernel needs 8-byte-aligned events),
     ``on_bucket(cfg, lens, ev_off, ev_pk)`` sees them, and
     ``device_step`` runs there; the D2H copies start only after every
-    shard is launched. Returns the
+    shard is launched. ``on_h2d()``, where given, is called once, after
+    every shard's inputs are copied and before the first step. Returns the
     outputs on the host, concatenated in shard order, plus
     ``global_rep_len``: the sum of every row's ``rep_len_sum``, the host
-    sum that replaces ``raft_tpu``'s ``psum``."""
+    sum that replaces ``raft_tpu``'s ``psum``. Over one device this is
+    the unsharded step: one H2D, one ``device_step``, its D2H."""
     devices = [torch.device(d) for d in devices]
 
-    def step(lens, ev_off, ev_pk, *, cfg: StaticCfg, on_bucket=None) -> dict:
+    def step(lens, ev_off, ev_pk, *, cfg: StaticCfg, on_bucket=None,
+             on_h2d=None) -> dict:
+        shards = [tuple(
+            torch.from_numpy(np.ascontiguousarray(a[s * m:(s + 1) * m]))
+            .to(dev)
+            for a, m in ((lens, cfg.B), (ev_off, cfg.B + 1), (ev_pk, cfg.E)))
+            for s, dev in enumerate(devices)]
+        if on_h2d is not None:
+            on_h2d()
         outs = []
-        for s, dev in enumerate(devices):
-            args = tuple(
-                torch.from_numpy(np.ascontiguousarray(a[s * m:(s + 1) * m]))
-                .to(dev)
-                for a, m in ((lens, cfg.B), (ev_off, cfg.B + 1),
-                             (ev_pk, cfg.E)))
+        for args in shards:
             if on_bucket is not None:
                 on_bucket(cfg, *args)
             outs.append(device_step(*args, cfg=cfg))
-        host = {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+        host = {k: (np.concatenate([o[k].cpu().numpy() for o in outs])
+                    if len(outs) > 1 else outs[0][k].cpu().numpy())
                 for k in outs[0]}
         host["global_rep_len"] = int(
             host["packed"][:, rep_len_sum_col(cfg)].sum(dtype=np.int64))

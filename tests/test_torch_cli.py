@@ -27,6 +27,9 @@ ARGS = ["-e", "10", "-m", "1.3", "-p", "2000", "-l", "4000", "-f", "300",
 PORT_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
                          r"import\s+raft_tpu(?!\w)|from\s+raft_tpu(?!\w))",
                          re.M)
+# A quoted module name of raft_tpu (not raft_tpu_torch), as a subprocess's
+# "-m" argument names it.
+PORT_LAUNCH = re.compile(r"""["']raft_tpu\.""")
 
 
 def _run(main, args, cwd, capsys):
@@ -180,6 +183,19 @@ def test_devices_byte_equal(tmp_path, capsys, flag):
     assert all(b[i] == b[i - i % n] for i in range(len(b)))
 
 
+@pytest.mark.parametrize("flag", [["--engine", "jax"], ["--engine=jax"]],
+                         ids=["engine_jax", "engine_eq_jax"])
+def test_engine_jax_byte_equal(tmp_path, capsys, flag):
+    """``--engine jax``, raft_tpu's name for its device engine and its
+    default, runs the port's torch engine: files byte-equal and stdout
+    line-equal to raft_tpu.cli with the same flag."""
+    reads, paf = datagen.standard_case(seed=19, tmpdir=str(tmp_path),
+                                       n_reads=25)
+    _, out, err = _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf],
+                                   extra=flag)
+    assert "ERROR" not in err and out
+
+
 def test_devices_below_one_exits_1(tmp_path, capsys):
     reads, paf = datagen.standard_case(seed=18, tmpdir=str(tmp_path),
                                        n_reads=5)
@@ -246,14 +262,27 @@ def test_no_jax_import_in_port_sources():
     """Neither jax nor any module of raft_tpu is imported by the port or
     chip_smoke.py, at any indentation (function-level imports included):
     ``import raft_tpu``, ``import raft_tpu.x``, ``from raft_tpu import``
-    and ``from raft_tpu.x import``, but not ``raft_tpu_torch``."""
+    and ``from raft_tpu.x import``, but not ``raft_tpu_torch``. Nor does
+    any of them start a ``raft_tpu`` module in a subprocess: no string
+    ``"raft_tpu.x"`` (a ``-m`` argument), only ``"raft_tpu_torch.x"``.
+    Both patterns are first shown to catch what they are for."""
+    for bad in ("import jax\n", "    from raft_tpu.io import native\n",
+                "import raft_tpu.cli\n"):
+        assert PORT_IMPORT.search(bad), bad
+    assert not PORT_IMPORT.search("from raft_tpu_torch import cli\n")
+    for bad in ('[sys.executable, "-m", "raft_tpu.cli"]',
+                "['-m', 'raft_tpu.tools.bench_cpu']"):
+        assert PORT_LAUNCH.search(bad), bad
+    assert not PORT_LAUNCH.search('["-m", "raft_tpu_torch.cli"]')
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 20
+    assert len(files) >= 28
     for fn in files:
         with open(fn) as f:
-            assert not PORT_IMPORT.search(f.read()), fn
+            src = f.read()
+        assert not PORT_IMPORT.search(src), fn
+        assert not PORT_LAUNCH.search(src), fn
 
 
 def test_chip_smoke_imports_only_the_port():

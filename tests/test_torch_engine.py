@@ -177,8 +177,14 @@ def test_cov_events_callback_timers_and_grouped(monkeypatch, capsys):
     assert len(early) == 1
     np.testing.assert_array_equal(early[0].ensure_cov(), res.ensure_cov())
     assert early[0].total_coverage == res.total_coverage
+    # sharded, the same per-bucket path marks the same stages
+    timers = {}
+    sharded = compute_torch(store, table, params, timers_out=timers,
+                            grouped=grouped, devices=["cpu", "cpu"])
+    assert {"events", "bucket_prep", "h2d", "step", "integrate"} <= set(timers)
     monkeypatch.undo()
     _assert_same(res, compute_jax(*ref))
+    _assert_same(sharded, compute_jax(*ref))
 
 
 def test_cov_out_other_than_host_is_refused(monkeypatch):
