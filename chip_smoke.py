@@ -4,24 +4,38 @@
     python3 chip_smoke.py --multi-card  # two or more cards of one host
     python3 chip_smoke.py --ab DIR      # this kernel against DIR's; one card
 
+The device step runs two hand-written kernels a bucket, each built from
+``raft_tpu_torch/csrc``: the coverage pileup (``csrc/pileup.cu``), then
+``scan_chop`` (``csrc/scan_chop.cu``: the repeat scan, markers and
+fragments, the ``diff8`` diff and the packing). Wherever a step below
+holds "the kernel" against its plain twin on a bucket, it holds both:
+the pileup on the bucket's device inputs, then ``scan_chop`` on the
+kernel's coverage and the bucket's lengths, every output exactly.
+
 1. Prints the card (torch's name, and nvidia-smi's name, power limit and
    compute mode).
-2. Builds the CUDA pileup kernel from ``raft_tpu_torch/csrc`` with nvcc.
-3. Holds the kernel against its plain PyTorch twin on the card, exactly,
-   on synthetic buckets: main-path shapes, a W=64 tail, two multi-stripe
-   ultralong tiers, a width in each regime whose rows are not 16-byte
-   aligned (the int-store path), pack32 and pairs, with empty rows,
-   invalid events and padding; prints per shape the launch plan, both median times, the
-   bound (the bytes the pileup must move over 3.35 TB/s) and the kernel's
-   share of it.
+2. Builds both CUDA kernels from ``raft_tpu_torch/csrc`` with nvcc, into
+   one library.
+3. Holds the pileup kernel against its plain PyTorch twin on the card,
+   exactly, on synthetic buckets: main-path shapes, a W=64 tail, two
+   multi-stripe ultralong tiers, a width in each regime whose rows are not
+   16-byte aligned (the int-store path), pack32 and pairs, with empty
+   rows, invalid events and padding; prints per shape the launch plan,
+   both median times, the bound (the bytes the pileup must move over 3.35
+   TB/s) and the kernel's share of it. Then (3b) ``scan_chop`` against its
+   twin, exactly, in ``host`` and ``diff8`` mode, on ``SCAN_CHOP_CASES``:
+   the pileup kernel's output at (4096, 512) and (8, 2^20) with the bench
+   flags, and crafted rows (alternating runs, no run, padding, int8
+   overflow) over a parameter sweep; each with both median times and its
+   bound (``scan_chop_bound``).
 4. Checks the CLI's ``--device cuda`` output against the numpy oracle
    engine on a small dataset, then runs the whole-file CLI on the 32k-read
    bench dataset (``gen_dataset``, seed 7) with ``--device cuda`` and
    ``--device cpu``, compares the four output files byte for byte, and
-   checks that the CUDA run launched the pileup kernel once per bucket it
-   reported. Then holds the kernel against its plain twin, exactly, on
-   every bucket of that dataset as the engine hands it to the device, and
-   checks those are the buckets the CLI run reported.
+   checks that the CUDA run launched each kernel once per bucket it
+   reported. Then holds both kernels against their plain twins, exactly,
+   on every bucket of that dataset as the engine hands it to the device,
+   and checks those are the buckets the CLI run reported.
 5. Coverage return modes on the 32k dataset: ``--cov-out diff8`` and
    ``--cov-out cov`` with ``--device cuda`` must equal the ``host`` run
    byte for byte; then each mode's engine stage seconds (the ``step``
@@ -32,20 +46,24 @@
    b. ``run_pipeline(devices=[cuda:0] * 4)``, four shards on one card,
       whole-file and ``--chunk-reads 8192``, each timed in turns with the
       unsharded run (unsharded, sharded, sharded, unsharded); every timed
-      sharded run must have launched the kernel once per shard it
+      sharded run must have launched each kernel once per shard it
       records, and an untimed rerun holds every shard of every bucket
-      against the plain twin, exactly;
+      against the plain twins, exactly;
    c. ``run_distributed`` in two processes (gloo over 127.0.0.1), both
       ranks on ``cuda:0`` when the card's compute mode is ``Default``
       (otherwise rank 1 runs on the CPU, and a line says so); rank 0's
       concatenated shards must equal the single run. Each rank holds every
-      pileup call of its engine against the plain twin, exactly, at the
-      rank's own bucket shapes, and prints its wall and its pileup launch
-      count, which must be one per call.
-7. ``--trace DIR`` on the small dataset with ``--device cuda``: the
-   Chrome trace must name the pileup kernel. Then ``--pallas`` and
-   ``--no-pallas`` on it: each launches the kernel once per bucket and
-   writes the step 4 run's files.
+      device step of its engine against the plain twins, exactly, at the
+      rank's own bucket shapes, and prints its wall and its launch counts,
+      which must be one of each kernel per step.
+7. ``--trace DIR`` on the small dataset with ``--device cuda`` (the
+   process's first profiler session): the Chrome trace must name both
+   kernels, once per launch. Then ``--pallas`` and ``--no-pallas`` on it:
+   each launches each kernel once per bucket and writes the step 4 run's
+   files. Then (7b) one ``compute_torch`` pass over the 32k dataset in
+   ``host`` mode under torch.profiler, after a warm-up pass in the same
+   session: the card runs the two kernels once per bucket each and
+   copies, nothing else.
 8. Streaming at real size: a 100k-read dataset (``gen_dataset``, seed 7,
    about 2.4 GB of FASTA, over the 2 GB auto-chunk gate) run by the
    default CLI with ``--device cuda`` must auto-stream in 4 chunks (with
@@ -106,14 +124,16 @@
    are taken on a shared host), and every such run's ``--stats-json``
    must name ``cuda:0`` and report one pileup launch per bucket.
 11. Checks that neither jax nor any ``raft_tpu`` module was imported,
-   prints the kernel table as one JSON line, then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   prints the kernel table (``pileup`` and ``scan_chop``) as one JSON
+   line, then ``{"ok": true, "device": {...}}`` as the last line.
 
-Every CLI run on the card (steps 4-8) counts its own pileup launches
-(reset just before, read just after) and must have launched the kernel
+Every CLI run on the card (steps 4-8) counts its own launches of each
+kernel (reset just before, read just after) and must have launched each
 once per bucket it reports; it prints its wall, reads/s, stage seconds
 and peak ``torch.cuda.max_memory_allocated``. So does every entry point
-of step 10 that runs in this process.
+of step 10 (``bench_pileup`` launches only the pileup, and the bench's
+parity check one more pileup); the fresh processes of 10d-e report both
+counts in their ``--stats-json``.
 
 Only ``raft_tpu_torch`` is imported; its native I/O builds with fixed
 flags, whatever the environment's ``CXX``, ``CXXFLAGS`` and ``LDFLAGS``.
@@ -186,6 +206,32 @@ KERNEL_CASES = [
     (384, 256, 30, "pack32"), (384, 256, 30, "pairs"), (8, 64, 10, "pack32"),
     (8, 1 << 16, 3000, "pairs"), (8, 1 << 20, 20000, "pairs"),
     (33, 7, 5, "pack32"), (2, 65538, 3000, "pairs")]
+# Step 3b, scan_chop on the card: (label, B, W, AlgoParams fields or None
+# for the bench flags, coverage source). The two bench shapes on the
+# pileup kernel's output, then crafted rows over a sweep: a small -p (M in
+# the thousands at W=4096), repeat_length = reso (K = W/2 + 1), -f 0 with
+# div 1 and -v 0, a flank larger than a read, a flank whose products wrap
+# int32 (repeat slots out of order: the kernel's linear scan).
+SCAN_CHOP_CASES = [
+    ("bench", 4096, 512, None, "pileup"),
+    ("bench", 8, 1 << 20, None, "pileup"),
+    ("small -p", 64, 4096, dict(repeat_length=100, interval_length=100,
+                                read_length=200, flanking_length=1000,
+                                overlap_length=50), "crafted"),
+    ("repeat_length = reso", 256, 1024, dict(
+        repeat_length=50, interval_length=1000, read_length=2000,
+        flanking_length=100, overlap_length=100), "crafted"),
+    ("-f 0, div 1, -v 0", 1024, 512, dict(
+        repeat_length=1000, interval_length=2000, read_length=2000,
+        flanking_length=0, overlap_length=0), "crafted"),
+    ("flank > read", 1024, 512, dict(
+        repeat_length=1000, interval_length=2000, read_length=5000,
+        flanking_length=100_000, overlap_length=500), "crafted"),
+    ("flank wraps int32", 256, 512, dict(
+        repeat_length=300, interval_length=1000, read_length=2000,
+        flanking_length=2**31 - 1 - 10_000, overlap_length=200),
+     "crafted"),
+]
 # Step 9, the evaluation path: the recorded rows of the ground-truth
 # evaluation (both sweeps at 30x, 3 repeat families x 4 copies x 15 kb)
 EVAL_RECORDS = ("EVAL_sweep_r05.jsonl", "EVAL_noise_r05.jsonl")
@@ -212,6 +258,24 @@ ASM_PROXY_TABLE = {
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def zero_launches() -> None:
+    """Every kernel's launch count to 0, just before the run to count."""
+    from raft_tpu_torch.ops import _lib
+    _lib.zero_launches()
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since ``zero_launches``."""
+    from raft_tpu_torch.ops import _lib
+    return _lib.launch_counts()
+
+
+def once_each(counts: dict, n: int, label: str) -> None:
+    """Fails unless every kernel launched ``n`` > 0 times."""
+    check(n > 0 and set(counts.values()) == {n},
+          f"{label}: launches {counts}, not {n} of each kernel")
 
 
 def device_ms(torch, fn, launches=20, rounds=5) -> float:
@@ -277,11 +341,76 @@ def plan_text(plan) -> str:
             f"{'tma' if plan.tma_store else 'int'}")
 
 
-def hold(torch, pileup_cuda, cfg, off_d, pk_d, label, times=None):
+def scan_chop_bound(np, cfg, packed):
+    """The least milliseconds the card could take for one ``scan_chop``,
+    and what bounds it: the bytes (the coverage and lengths read once,
+    the packed rows written once, the int8 diff written in ``diff8``
+    mode; the kernel's own marker scratch is not the function's) over
+    HBM_BYTES_S, or
+    the operations over INT32_OPS_S: four a window in each of the two
+    scans, per marker candidate a binary search over the row's filled
+    repeat slots (this run's ``rep_n``), six a fragment column."""
+    B, W, M, K, F = cfg.B, cfg.W, cfg.M, cfg.K, cfg.F
+    nbytes = (4 * B * W + 4 * B + 4 * B * (2 * K + 2 * F + 5)
+              + (B * W if cfg.cov_out == "diff8" else 0))
+    slots = np.minimum(packed[:, 2 * K + 2 * F].astype(np.int64), K)
+    ops = (8 * B * W + int((M * (2 + np.ceil(np.log2(slots + 1)))).sum())
+           + 6 * B * F)
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / INT32_OPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def hold_scan_chop(torch, np, cfg, cov, lens_d, label, times=None):
+    """``scan_chop``'s kernel against its plain twin on one bucket's
+    coverage and lengths, exactly (every output); both median times and
+    the bound. With a ``times`` dict, a (B, W, M, K, F, mode) shape
+    already in it on the same device is compared but not timed again.
+    Returns the row's ``sc_*`` fields."""
+    from raft_tpu_torch.ops import scan_chop_cuda
+    dev = cov.device
+    got = scan_chop_cuda.scan_chop(cov, lens_d, cfg)
+    want = scan_chop_cuda.scan_chop_torch(cov, lens_d, cfg)
+    torch.cuda.synchronize()
+    err = max(int((got[k].long() - want[k].long()).abs().max().item())
+              for k in want)
+    check(set(got) == set(want) and err == 0
+          and all(torch.equal(got[k], want[k]) for k in want),
+          f"{label}: scan_chop kernel != plain at B={cfg.B} W={cfg.W} "
+          f"{cfg.cov_out} on {dev} (max |err| {err})")
+    packed = got["packed"].cpu().numpy()
+    bms, by = scan_chop_bound(np, cfg, packed)
+    key = ("scan_chop", cfg.B, cfg.W, cfg.M, cfg.K, cfg.F, cfg.cov_out,
+           str(dev))
+    if times is not None and key in times:
+        ms, plain = times[key]
+    else:
+        ms = device_ms(torch,
+                       lambda: scan_chop_cuda.scan_chop(cov, lens_d, cfg))
+        plain = device_ms(
+            torch, lambda: scan_chop_cuda.scan_chop_torch(cov, lens_d, cfg),
+            launches=5, rounds=3)
+        if times is not None:
+            times[key] = ms, plain
+        print(f"{label} scan_chop B={cfg.B:5d} W={cfg.W:8d} M={cfg.M} "
+              f"K={cfg.K} F={cfg.F} {cfg.cov_out} {dev} exact, rep_n "
+              f"{int(packed[:, 2 * cfg.K + 2 * cfg.F].sum())}  kernel "
+              f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.5f} ms "
+              f"({by})  share {bms / ms:.1%}")
+    return dict(sc_max_abs_err=err, sc_ms=ms, sc_plain_ms=plain,
+                sc_bound_ms=bms, sc_bound_by=by)
+
+
+def hold(torch, pileup_cuda, cfg, off_d, pk_d, label, times=None,
+         lens_d=None):
     """Kernel against plain on one bucket's device inputs, exactly; both
-    median times, the launch plan and the bound. With a ``times`` dict, a
-    (B, W, E, wire) shape already in it on the same device is compared
-    but not timed again, and prints nothing. Returns the table row."""
+    median times, the launch plan and the bound. With ``lens_d``, the
+    bucket's lengths, ``scan_chop`` is held on the kernel's coverage too
+    (``hold_scan_chop``). With a ``times`` dict, a (B, W, E, wire) shape
+    already in it on the same device is compared but not timed again,
+    and prints nothing. Returns the table row."""
+    import numpy as np
     wire = "pairs" if cfg.ev_pack == 0 else "pack32"
     dev = off_d.device
     with torch.cuda.device(dev):  # synchronize and time on the tensors' card
@@ -310,8 +439,12 @@ def hold(torch, pileup_cuda, cfg, off_d, pk_d, label, times=None):
                   f"{wire:6s} {dev} exact  {plan_text(plan)}  kernel "
                   f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.5f} ms "
                   f"({by})  share {bms / ms:.1%}")
-    return dict(B=cfg.B, W=cfg.W, E=cfg.E, wire=wire, max_abs_err=err,
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        row = dict(B=cfg.B, W=cfg.W, E=cfg.E, wire=wire, max_abs_err=err,
+                   ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        if lens_d is not None:
+            row.update(hold_scan_chop(torch, np, cfg, got, lens_d, label,
+                                      times))
+    return row
 
 
 def kernel_phase(torch, np, et, pileup_cuda, params):
@@ -327,9 +460,133 @@ def kernel_phase(torch, np, et, pileup_cuda, params):
     return rows
 
 
+def crafted_rows(np, rng, B, W, cfg):
+    """Coverage and lengths of a bucket with every kind of row ``scan_chop``
+    must get right, five in turn: random coverage with long high runs
+    (some past the read's last window, every tenth row a whole read with
+    one run that qualifies), alternating one-window runs, no run at all,
+    padding (length 0), a jump that overflows int8 in the diff."""
+    reso, hc = cfg.reso, cfg.high_cov
+    lens = rng.integers(1, W * reso + 1, B).astype(np.int32)
+    cov = rng.integers(0, 2 * hc + 1, (B, W)).astype(np.int32)
+    for b in range(B):
+        kind = b % 5
+        if kind == 0:
+            for _ in range(int(rng.integers(1, 5))):
+                a = int(rng.integers(0, W))
+                cov[b, a:a + int(rng.integers(1, W))] = hc + int(
+                    rng.integers(0, 40))
+            if b % 10 == 0:
+                lens[b] = W * reso
+                n = min(W, -(-cfg.repeat_length // reso) + 2)
+                a = int(rng.integers(0, W - n + 1))
+                cov[b, a:a + n] = hc
+        elif kind == 1:
+            cov[b] = np.where(np.arange(W) % 2 == 0, hc, hc - 1)
+            lens[b] = W * reso
+        elif kind == 2:
+            cov[b] = rng.integers(0, hc, W)
+        elif kind == 3:
+            lens[b] = 0
+        else:
+            cov[b, int(rng.integers(0, W))] = 200
+    return cov, lens
+
+
+def scan_chop_phase(torch, np, et, pileup_cuda, params):
+    """``scan_chop`` against its plain twin on the card, exactly, in
+    ``host`` and ``diff8`` mode: on the pileup kernel's output at the two
+    bench shapes (``SCAN_CHOP_CASES`` of source ``pileup``: reads of half
+    to all the bucket's width, the last sixteenth padding), and on crafted
+    rows (``crafted_rows``) over a sweep of the parameters. Returns the
+    rows, each with its times and bound."""
+    from raft_tpu_torch.params import AlgoParams
+    rng = np.random.default_rng(8)
+    rows = []
+    for label, B, W, fields, source in SCAN_CHOP_CASES:
+        p = params if fields is None else AlgoParams(
+            est_cov=params.est_cov, cov_mul=params.cov_mul, **fields)
+        if source == "pileup":  # events as KERNEL_CASES has these shapes
+            cfg, ev_off, pk = make_case(np, et, p, B, W, 60 if W < 4096
+                                        else 20000, "pack32" if W < 4096
+                                        else "pairs", rng)
+            cov = pileup_cuda.pileup(
+                torch.from_numpy(ev_off).cuda(),
+                torch.from_numpy(np.ascontiguousarray(pk)).cuda(), cfg)
+            lens = rng.integers(W * cfg.reso // 2, W * cfg.reso + 1,
+                                B).astype(np.int32)
+            lens[B - max(1, B // 16):] = 0
+        else:
+            cfg = et.derive_cfg(B, W, 64, p)
+            cov_h, lens = crafted_rows(np, rng, B, W, cfg)
+            cov = torch.from_numpy(cov_h).cuda()
+        lens_d = torch.from_numpy(lens).cuda()
+        for mode in ("host", "diff8"):
+            c = dataclasses.replace(cfg, cov_out=mode)
+            rows.append(dict(B=B, W=W, label=label, **hold_scan_chop(
+                torch, np, c, cov, lens_d, f"scan_chop case {label}")))
+    return rows
+
+
+def profile_step(torch, et, pipeline, params, reads, paf, n_buckets):
+    """One 32k ``compute_torch`` pass in ``host`` mode under
+    torch.profiler, the active step of a schedule whose warm-up step is
+    the same pass (events at a session's start are not reliable): the
+    card must run only the two kernels, once per bucket each, and copies
+    (memcpy, memset). Prints each device name's count and microseconds."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from raft_tpu_torch.ops import pileup_cuda, scan_chop_cuda
+    stats = pipeline.TorchRunStats()
+    store, table = pipeline.load_inputs(reads, paf, stats)
+    params = params.replace(real_reads=store.real_reads,
+                            symmetric_overlaps=table.symmetric)
+    on_card = {}
+
+    def ready(prof):
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = on_card.get(e.name, (0, 0.0))
+                on_card[e.name] = n + 1, us + e.time_range.elapsed_us()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            et.compute_torch(store, table, params, device="cuda",
+                             cov_out="host")
+            torch.cuda.synchronize()
+            prof.step()
+    kinds = {"pileup": pileup_cuda.KERNEL_NAMES,
+             "scan_chop": scan_chop_cuda.KERNEL_NAMES}
+    count = {k: sum(n for name, (n, _) in on_card.items()
+                    if any(kn in name for kn in names))
+             for k, names in kinds.items()}
+    # the schedule's step annotation spans the pass on the device timeline
+    span_us = sum(us for name, (_, us) in on_card.items()
+                  if name.startswith("ProfilerStep"))
+    work = {name: v for name, v in on_card.items()
+            if not name.startswith("ProfilerStep")}
+    other = [name for name in work
+             if not any(kn in name for names in kinds.values()
+                        for kn in names)
+             and not name.lower().startswith(("memcpy", "memset"))]
+    for name, (n, us) in sorted(work.items()):
+        print(f"profiled 32k step (host mode): {n:4d} x {name[:90]} "
+              f"{us:.1f} us")
+    check(not other and count["pileup"] == count["scan_chop"] == n_buckets,
+          f"profiled 32k step: kernels {count}, other device work {other} "
+          f"for {n_buckets} buckets")
+    busy = sum(us for _, us in work.values())
+    print(f"profiled 32k step: only pileup and scan_chop ({n_buckets} "
+          f"each) and copies on the card; device busy {busy:.1f} us of the "
+          f"pass's {span_us:.1f} us (idle "
+          f"{1 - busy / span_us if span_us else float('nan'):.1%})")
+
+
 def main_path_buckets(torch, et, pipeline, params, reads, paf):
     """Every bucket's device inputs of the dataset, as ``compute_torch``
-    hands them to the device: (cfg, ev_off, ev_pk) on cuda:0."""
+    hands them to the device: (cfg, lens, ev_off, ev_pk) on cuda:0."""
     out = []
     stats = pipeline.TorchRunStats()
     store, table = pipeline.load_inputs(reads, paf, stats)
@@ -337,18 +594,37 @@ def main_path_buckets(torch, et, pipeline, params, reads, paf):
                             symmetric_overlaps=table.symmetric)
     et.compute_torch(store, table, params, device="cuda",
                      on_bucket=lambda cfg, lens, off, pk: out.append(
-                         (cfg, off.clone(), pk.clone())))
+                         (cfg, lens.clone(), off.clone(), pk.clone())))
     return out
 
 
 def load_base(root):
     """The pileup wrapper of another tree, under its own module name, so
-    that it builds and loads that tree's kernel library from that tree."""
-    path = os.path.join(root, "raft_tpu_torch", "ops", "pileup_cuda.py")
-    spec = importlib.util.spec_from_file_location("base_pileup_cuda", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    that it builds and loads that tree's kernel library from that tree:
+    where the tree has a library loader of its own (``ops/_lib.py``), the
+    wrapper is loaded with that one in place of this tree's. Returns (the
+    wrapper, the function that builds its library)."""
+    import raft_tpu_torch.ops as ops
+    ops_dir = os.path.join(root, "raft_tpu_torch", "ops")
+
+    def load(name, fname):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ops_dir, fname))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    if not os.path.exists(os.path.join(ops_dir, "_lib.py")):
+        mod = load("base_pileup_cuda", "pileup_cuda.py")
+        return mod, mod.build_kernels
+    lib = load("base_kernel_lib", "_lib.py")
+    ours = ops._lib
+    ops._lib = lib  # what the wrapper's `from raft_tpu_torch.ops import
+    try:            # _lib` binds
+        mod = load("base_pileup_cuda", "pileup_cuda.py")
+    finally:
+        ops._lib = ours
+    return mod, lib.build_kernels
 
 
 def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, work,
@@ -364,8 +640,8 @@ def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, work,
                       torch.from_numpy(np.ascontiguousarray(pk)).cuda()))
     reads, paf = gen_dataset(os.path.join(work, "bench"), n_reads=N_READS,
                              n_overlaps=N_READS * 30, est_cov=20, seed=7)
-    cases += [("32k bucket", *c) for c in main_path_buckets(
-        torch, et, pipeline, params, reads, paf)]
+    cases += [("32k bucket", cfg, off, pk) for cfg, _, off, pk in
+              main_path_buckets(torch, et, pipeline, params, reads, paf)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     one = torch.zeros(1, dtype=torch.int32, device="cuda")
     print(f"launch floor (one 4-byte fill kernel, the same timing): "
@@ -398,11 +674,11 @@ def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, work,
 
 
 def real_bucket_phase(torch, et, pileup_cuda, pipeline, params, reads, paf):
-    """Kernel against plain on every bucket of the dataset, as
+    """Both kernels against plain on every bucket of the dataset, as
     ``compute_torch`` hands it to the device; one row per bucket."""
-    return [hold(torch, pileup_cuda, cfg, off, pk, "bucket")
-            for cfg, off, pk in main_path_buckets(torch, et, pipeline,
-                                                  params, reads, paf)]
+    return [hold(torch, pileup_cuda, cfg, off, pk, "bucket", lens_d=lens)
+            for cfg, lens, off, pk in main_path_buckets(torch, et, pipeline,
+                                                        params, reads, paf)]
 
 
 def run_cli(cli, args, label):
@@ -438,33 +714,34 @@ def digest_and_remove(prefix: str) -> dict:
 
 
 def drive(torch, cli, pileup_cuda, opts, inputs, prefix, label, n_reads):
-    """One CLI run with ``--device cuda``: its own pileup launch count
-    (reset just before, read just after) and peak device memory. Fails
-    unless the kernel launched once per bucket the run reports. Returns
-    the run's stats JSON with ``launches`` added."""
+    """One CLI run with ``--device cuda``: its own launch counts (reset
+    just before, read just after) and peak device memory. Fails unless
+    each kernel launched once per bucket the run reports, and the run's
+    ``launches`` are those counts. Returns the run's stats JSON."""
     sj = prefix + ".stats.json"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pileup_cuda.launches = 0
+    zero_launches()
     wall = run_cli(cli, [*opts, "-o", prefix, "--stats-json", sj,
                          "--device", "cuda", *inputs], label)
     torch.cuda.synchronize()
-    launches = pileup_cuda.launches
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
     with open(sj) as f:
         st = json.load(f)
     os.remove(sj)
-    check(launches == len(st["buckets"]) > 0,
-          f"{label}: pileup launches {launches} != buckets "
-          f"{len(st['buckets'])}")
+    once_each(counts, len(st["buckets"]), label)
+    check(st["launches"] == counts,
+          f"{label}: the run reports launches {st['launches']}, {counts} "
+          "counted")
     check(st["n_reads"] == n_reads and st["native_io"],
           f"{label}: {st['n_reads']} reads, native I/O {st['native_io']}")
     print(f"{label}: {st['schedule']} x{st['n_chunks']}, wall {wall:.3f} s, "
-          f"{n_reads / wall:.1f} reads/s, {launches} pileup launches "
-          f"(= buckets), peak device memory {peak:.1f} MiB, stages "
-          + json.dumps({k: round(v, 3)
-                        for k, v in st["stage_seconds"].items()}))
-    return {**st, "launches": launches}
+          f"{n_reads / wall:.1f} reads/s, {len(st['buckets'])} launches "
+          f"of each kernel (= buckets), peak device memory {peak:.1f} MiB, "
+          "stages " + json.dumps({k: round(v, 3)
+                                  for k, v in st["stage_seconds"].items()}))
+    return st
 
 
 def held_run(torch, cli, pipeline, pileup_cuda, opts, inputs, prefix, label,
@@ -485,7 +762,7 @@ def held_run(torch, cli, pipeline, pileup_cuda, opts, inputs, prefix, label,
         devices=(make_devices(extras["devices"], "cuda")
                  if extras["devices"] else None),
         on_bucket=lambda cfg, lens, off, pk: rows.append(
-            hold(torch, pileup_cuda, cfg, off, pk, label, times)))
+            hold(torch, pileup_cuda, cfg, off, pk, label, times, lens)))
     check([[r["B"], r["W"], r["E"]] for r in rows] == st["buckets"],
           f"{label}: the buckets held against plain are not the timed "
           "run's")
@@ -534,17 +811,15 @@ def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
         for devs in (None, four, four, None):
             kind = "sharded" if devs else "unsharded"
             torch.cuda.synchronize()
-            pileup_cuda.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             st = pipeline.run_pipeline(*inputs, params, verbose=False,
                                        device="cuda", chunk_reads=chunk,
                                        devices=devs)
             torch.cuda.synchronize()
             walls[kind].append(time.perf_counter() - t0)
-            launches = pileup_cuda.launches
-            check(launches == len(st.buckets) > 0,
-                  f"{kind} {sched}: pileup launches {launches} != "
-                  f"recorded shards {len(st.buckets)}")
+            counts = launch_counts()
+            once_each(counts, len(st.buckets), f"{kind} {sched}")
             check(digest_and_remove(prefix) == want,
                   f"{kind} {sched}: outputs differ from the unsharded "
                   "--device cuda run's")
@@ -554,8 +829,7 @@ def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
                       and len(shards) % N_SHARDS == 0,
                       f"sharded {sched}: devices {st.devices}, "
                       f"{len(shards)} shards")
-                by_path[f"32k {N_SHARDS} shards on cuda:0, {sched}"] = (
-                    launches)
+                by_path[f"32k {N_SHARDS} shards on cuda:0, {sched}"] = counts
             else:
                 n_buckets = len(st.buckets)
         check(len(shards) == N_SHARDS * n_buckets,
@@ -565,7 +839,7 @@ def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
         pipeline.run_pipeline(
             *inputs, params, verbose=False, device="cuda", chunk_reads=chunk,
             devices=four, on_bucket=lambda cfg, lens, off, pk: held.append(
-                hold(torch, pileup_cuda, cfg, off, pk, label, times)))
+                hold(torch, pileup_cuda, cfg, off, pk, label, times, lens)))
         check([[r["B"], r["W"], r["E"]] for r in held]
               == [list(b) for b in shards],
               f"{label}: the shards held against plain are not the timed "
@@ -583,28 +857,39 @@ def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
 
 
 # One rank of step 6c (and of --multi-card) as one JSON line: its wall,
-# its pileup launch count, the jax and raft_tpu modules it imported (none
-# may be), and a row per pileup
-# call of the engine: that call's (B, W, E), held against the plain twin on
-# the same device inputs. The launch count rises only in the real wrapper.
+# each kernel's launch count, the jax and raft_tpu modules it
+# imported (none may be), and a row per pileup call of the engine: that
+# call's (B, W, E), held against the plain twin on the same device
+# inputs, and ``scan_chop`` held against its twin on the kernel's
+# coverage. The launch counts rise only in the real wrappers.
 RANK_CODE = """\
 import json, sys, time
 import torch
 from raft_tpu_torch import engine_torch
 from raft_tpu_torch.cli import parse_args
-from raft_tpu_torch.ops import pileup_cuda
+from raft_tpu_torch.ops import _lib, pileup_cuda, scan_chop_cuda
 from raft_tpu_torch.parallel import run_distributed
 held = []
+def err(got, want):
+    return int((got.long() - want.long()).abs().max().item())
 def held_pileup(ev_off, ev_pk, cfg):
     got = pileup_cuda.pileup(ev_off, ev_pk, cfg)
     want = pileup_cuda.pileup_torch(ev_off, ev_pk, cfg)
-    held.append(dict(
-        B=cfg.B, W=cfg.W, E=cfg.E, equal=torch.equal(got, want),
-        max_abs_err=int((got.long() - want.long()).abs().max().item())))
+    held.append(dict(B=cfg.B, W=cfg.W, E=cfg.E, equal=torch.equal(got, want),
+                     max_abs_err=err(got, want)))
+    return got
+def held_scan_chop(cov, lens, cfg):
+    got = scan_chop_cuda.scan_chop(cov, lens, cfg)
+    want = scan_chop_cuda.scan_chop_torch(cov, lens, cfg)
+    held[-1].update(
+        sc_equal=set(got) == set(want)
+        and all(torch.equal(got[k], want[k]) for k in want),
+        sc_max_abs_err=max(err(got[k], want[k]) for k in want))
     return got
 engine_torch.pileup = held_pileup
+engine_torch.scan_chop = held_scan_chop
 params = parse_args({args!r})[0]
-pileup_cuda.launches = 0
+_lib.zero_launches()
 t0 = time.perf_counter()
 run_distributed({reads!r}, {paf!r}, params, coordinator={coord!r},
                 num_processes={n}, process_id={rank}, device={device!r})
@@ -612,7 +897,7 @@ if {device!r} == "cuda":
     torch.cuda.synchronize()
 print(json.dumps({{"rank": {rank}, "device": {device!r},
                   "wall": time.perf_counter() - t0,
-                  "launches": pileup_cuda.launches, "held": held,
+                  "launches": _lib.launch_counts(), "held": held,
                   "foreign": sorted(m for m in sys.modules if m.split(".")[0]
                                     in ("jax", "raft_tpu"))}}))
 """
@@ -622,8 +907,9 @@ def multi_process_phase(inputs, prefix, want, devs, visible=None):
     """``run_distributed`` in ``len(devs)`` processes over gloo on
     127.0.0.1, rank r on ``devs[r]`` (``cuda`` or ``cpu``), with
     ``CUDA_VISIBLE_DEVICES`` set to ``visible[r]`` when given. Every
-    pileup call of every rank is held against the plain twin, exactly,
-    and a rank on the card must have launched the kernel once per call.
+    device step of every rank holds both kernels against their plain
+    twins, exactly, and a rank on the card must have launched each kernel
+    once per step.
     Rank 0's concatenated shards must equal the single run. Returns (the
     launches by path, the held rows)."""
     import socket
@@ -664,18 +950,20 @@ def multi_process_phase(inputs, prefix, want, devs, visible=None):
         r = json.loads(out.splitlines()[-1])
         check(not r["foreign"], f"{label} imported {r['foreign']}")
         held = r["held"]
-        check(len(held) > 0
-              and r["launches"] == (len(held) if r_dev == "cuda" else 0),
-              f"{label}: {r['launches']} pileup launches for {len(held)} "
-              "pileup calls")
-        bad = [h for h in held if not h["equal"] or h["max_abs_err"]]
+        check(len(held) > 0 and set(r["launches"].values())
+              == {len(held) if r_dev == "cuda" else 0},
+              f"{label}: launches {r['launches']} for {len(held)} device "
+              "steps")
+        bad = [h for h in held if not (h["equal"] and h.get("sc_equal"))
+               or h["max_abs_err"] or h["sc_max_abs_err"]]
         check(not bad, f"{label}: kernel != plain on {bad}")
         by_path[f"32k {label}"] = r["launches"]
         rows += held
         shapes = sorted({(h["B"], h["W"]) for h in held})
         print(f"{label}: wall {r['wall']:.3f} s in run_distributed, "
-              f"{r['launches']} pileup launches, each held == plain, "
-              f"(B, W) {shapes}")
+              f"{r['launches']['pileup']} launches of each kernel, each "
+              "held == "
+              f"plain, (B, W) {shapes}")
     check(digest_and_remove(prefix) == want,
           f"{n}-process: concatenated shards differ from the single run's")
     print(f"{n}-process: {wall:.3f} s for all processes, start-up "
@@ -781,7 +1069,7 @@ def instrument_eval(torch, ev, pileup_cuda, after_point):
         cur.clear()
         cur["buckets"] = []
         torch.cuda.synchronize()
-        pileup_cuda.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         row = real["_eval_point"](workdir, prefix, info, genome_size,
                                   engine, est_cov_scale, loaded=loaded,
@@ -790,7 +1078,7 @@ def instrument_eval(torch, ev, pileup_cuda, after_point):
         rec = dict(row=row, workdir=workdir, prefix=prefix, info=info,
                    genome_size=genome_size, device=device,
                    wall=time.perf_counter() - t0,
-                   launches=pileup_cuda.launches, sim_s=sim_s,
+                   launches=launch_counts(), sim_s=sim_s,
                    run_s=cur["run_pipeline"],
                    compute_s=cur["compute_torch"], stats=cur["stats"],
                    compute_buckets=cur["buckets"])
@@ -826,17 +1114,17 @@ def check_point(rec: dict, want_row: dict | None) -> str:
               f"{json.dumps(row)}\n  want {json.dumps(want_row)}")
     run_b, cmp_b = [tuple(b) for b in st.buckets], rec["compute_buckets"]
     on_card = rec["device"] == "cuda"
-    check(rec["launches"] == (len(run_b) + len(cmp_b) if on_card else 0)
-          and (rec["launches"] > 0 or not on_card),
-          f"{label}: {rec['launches']} pileup launches for {len(run_b)} + "
+    n = len(run_b) + len(cmp_b) if on_card else 0
+    check(set(rec["launches"].values()) == {n} and (n > 0 or not on_card),
+          f"{label}: launches {rec['launches']} for {len(run_b)} + "
           f"{len(cmp_b)} buckets")
     check(st.schedule != "whole" or run_b == cmp_b,
           f"{label}: the product run's buckets are not compute_torch's")
     sim = "" if rec["sim_s"] is None else f"simulation {rec['sim_s']:.3f} s, "
     print(f"{label}: wall {rec['wall']:.3f} s ({sim}product run "
           f"{rec['run_s']:.3f} s {st.schedule} x{st.n_chunks}, "
-          f"compute_torch {rec['compute_s']:.3f} s), {rec['launches']} "
-          f"pileup launches ({'=' if on_card else 'on the CPU:'} "
+          f"compute_torch {rec['compute_s']:.3f} s), {n} "
+          f"launches of each kernel ({'=' if on_card else 'on the CPU:'} "
           f"{len(run_b)} + {len(cmp_b)} buckets)"
           + (", row == record" if want_row is not None else ""))
     return label
@@ -879,35 +1167,37 @@ def held_point_run(torch, pipeline, pileup_cuda, rec, label, times,
     buckets are ``want_buckets`` and the four outputs' SHA-256 are
     ``want_digest``. Returns (the rows, the launches, the run's stats)."""
     from raft_tpu_torch import AlgoParams
+    from raft_tpu_torch.ops import _lib
     rows = []
 
     def on_bucket(cfg, lens, off, pk):
-        n = pileup_cuda.launches
-        rows.append(hold(torch, pileup_cuda, cfg, off, pk, label, times))
-        pileup_cuda.launches = n
+        n = launch_counts()
+        rows.append(hold(torch, pileup_cuda, cfg, off, pk, label, times,
+                         lens))
+        _lib.launches.update(n)
 
     params = AlgoParams(est_cov=rec["row"]["est_cov_used"],
                         outputfilename=os.path.join(rec["workdir"], "held"))
     torch.cuda.synchronize()
-    pileup_cuda.launches = 0
+    zero_launches()
     st = pipeline.run_pipeline(
         rec["prefix"] + ".reads.fasta", rec["prefix"] + ".overlaps.paf",
         params, verbose=False, device="cuda", chunk_reads=chunk_reads,
         on_bucket=on_bucket)
     torch.cuda.synchronize()
-    launches = pileup_cuda.launches
+    counts = launch_counts()
     check([(r["B"], r["W"], r["E"]) for r in rows]
           == [tuple(b) for b in st.buckets]
-          == [tuple(b) for b in want_buckets]
-          and launches == len(rows) > 0,
-          f"{label}: {launches} launches, {len(rows)} buckets held, "
-          f"{len(want_buckets)} wanted, or not the same buckets")
+          == [tuple(b) for b in want_buckets],
+          f"{label}: {len(rows)} buckets held, {len(want_buckets)} wanted, "
+          "or not the same buckets")
+    once_each(counts, len(rows), label)
     check(digest_and_remove(params.outputfilename) == want_digest,
           f"{label}: outputs differ from the point's")
-    print(f"{label}: {st.schedule} x{st.n_chunks}, kernel == plain on all "
-          f"{len(rows)} buckets, {launches} launches (= buckets); outputs "
-          "== the point's (4 files, SHA-256)")
-    return rows, launches, st
+    print(f"{label}: {st.schedule} x{st.n_chunks}, both kernels == plain "
+          f"on all {len(rows)} buckets, {len(rows)} launches of each (= "
+          "buckets); outputs == the point's (4 files, SHA-256)")
+    return rows, counts, st
 
 
 def eval_phase(torch, np, pipeline, pileup_cuda, work, times):
@@ -942,7 +1232,8 @@ def eval_phase(torch, np, pipeline, pileup_cuda, work, times):
                   f"{point_label(rec)}: no record, or matched twice")
             matched.add(key)
             check_point(rec, records[key])
-        by_path[path] = sum(r["launches"] for r in recs)
+        by_path[path] = {k: sum(r["launches"][k] for r in recs)
+                         for k in recs[0]["launches"]}
         return recs
 
     # a. the recorded rows: both sweeps, then the noisy --auto-e points
@@ -971,12 +1262,12 @@ def eval_phase(torch, np, pipeline, pileup_cuda, work, times):
             rows, _, _ = held_point_run(torch, pipeline, pileup_cuda, rec,
                                         label, times, rec["stats"].buckets,
                                         rec["digest"])
-            check(rec["launches"] == 2 * len(rows),
-                  f"{label}: the point launched {rec['launches']} times for "
+            check(set(rec["launches"].values()) == {2 * len(rows)},
+                  f"{label}: the point launched {rec['launches']} for "
                   f"{len(rows)} buckets held")
             held += rows
-            print(f"{label}: the point launched {rec['launches']} (= 2 x "
-                  f"{len(rows)})")
+            print(f"{label}: the point launched each kernel "
+                  f"{2 * len(rows)} times (= 2 x {len(rows)})")
         # the same 1x points on the CPU, for contrast
         rec = sweep[(g, EVAL_SEEDS[0])]
         store = ev.load_reads(rec["prefix"] + ".reads.fasta")
@@ -1039,12 +1330,12 @@ def eval_phase(torch, np, pipeline, pileup_cuda, work, times):
     # whose buckets are the compute_torch pass's
     held += held_point_run(torch, pipeline, pileup_cuda, rec,
                            f"{label}, held", times, st.buckets, want)[0]
-    rows, launches, wst = held_point_run(
+    rows, counts, wst = held_point_run(
         torch, pipeline, pileup_cuda, rec, f"{label}, --chunk-reads 0, held",
         times, rec["compute_buckets"], want, chunk_reads=0)
     check(wst.schedule == "whole", f"{label}, --chunk-reads 0: streamed")
     held += rows
-    by_path[f"{label}, --chunk-reads 0"] = launches
+    by_path[f"{label}, --chunk-reads 0"] = counts
     # the same point with --device cpu: the same row and outputs
     n0 = len(log)
     ev._eval_point(wd, rec["prefix"], rec["info"], EVAL_BIG, "torch", 1.0,
@@ -1137,14 +1428,13 @@ def tool_process(beside, env, module, args, label):
     return line
 
 
-def on_card(run: dict, label: str) -> int:
+def on_card(run: dict, label: str) -> dict:
     """A fresh process's CLI run, from its ``--stats-json``: on
-    ``cuda:0``, one pileup launch per bucket. Returns the launches."""
-    check(run["devices"] == ["cuda:0"]
-          and run["pileup_launches"] == run["n_buckets"] > 0,
-          f"{label}: devices {run['devices']}, {run['pileup_launches']} "
-          f"launches for {run['n_buckets']} buckets")
-    return run["pileup_launches"]
+    ``cuda:0``, one launch of each kernel per bucket. Returns the
+    launches."""
+    check(run["devices"] == ["cuda:0"], f"{label}: devices {run['devices']}")
+    once_each(run["launches"], run["n_buckets"], label)
+    return run["launches"]
 
 
 def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
@@ -1162,42 +1452,43 @@ def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
     # a. the headline benchmark
     label = f"32k raft_tpu_torch.bench, {HARNESS_ROUNDS} rounds"
     torch.cuda.synchronize()
-    pileup_cuda.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rc, line = tool_in_process(bench.main, [], env)
-    launches = pileup_cuda.launches
+    counts = launch_counts()
     print(f"{label}: {time.perf_counter() - t0:.1f} s; {json.dumps(line)}")
     check(rc == 0 and line["pileup_ok"] is True
           and line["rounds"] == HARNESS_ROUNDS and line["n_reads"] == N_READS
           and line["device_name"] == name
           and line["nvidia_smi"] == smi.strip().splitlines()[0],
           f"{label}: exit {rc}, line {line}")
-    check(launches == (1 + HARNESS_ROUNDS) * n_buckets + 1,
-          f"{label}: {launches} pileup launches, not (1 + "
-          f"{HARNESS_ROUNDS}) x {n_buckets} + 1")
+    runs = (1 + HARNESS_ROUNDS) * n_buckets
+    check(counts == {"pileup": runs + 1, "scan_chop": runs},
+          f"{label}: launches {counts}, not (1 + {HARNESS_ROUNDS}) x "
+          f"{n_buckets} of each (+ 1 pileup)")
     check(digest_and_remove(os.path.join(hw, "ours")) == want,
           f"{label}: outputs differ from step 4's")
-    print(f"{label}: {launches} pileup launches (= (1 + {HARNESS_ROUNDS}) x "
-          f"{n_buckets} buckets + 1 parity check); outputs == step 4's")
-    by_path[label] = launches
+    print(f"{label}: launches {counts} (= (1 + {HARNESS_ROUNDS}) x "
+          f"{n_buckets} buckets, + 1 pileup parity check); outputs == step "
+          "4's")
+    by_path[label] = counts
 
     # b. the transfer decomposition
     label = "32k tools.bench_fetch"
-    pileup_cuda.launches = 0
+    zero_launches()
     rc, line = tool_in_process(bench_fetch.main, [], env)
-    launches = pileup_cuda.launches
-    print(f"{label}: {launches} pileup launches; {json.dumps(line)}")
-    check(rc == 0 and line["n_buckets"] == n_buckets
-          and launches == 9 * n_buckets,
-          f"{label}: exit {rc}, {line.get('n_buckets')} buckets, "
-          f"{launches} launches")
-    by_path[label] = launches
+    counts = launch_counts()
+    print(f"{label}: launches {counts}; {json.dumps(line)}")
+    check(rc == 0 and line["n_buckets"] == n_buckets,
+          f"{label}: exit {rc}, {line.get('n_buckets')} buckets")
+    once_each(counts, 9 * n_buckets, label)
+    by_path[label] = counts
 
     # c. the kernel against its plain twin, bucket by bucket
     label = "32k tools.bench_pileup"
-    pileup_cuda.launches = 0
+    zero_launches()
     rc, line = tool_in_process(bench_pileup.main, [], env)
-    launches = pileup_cuda.launches
+    counts = launch_counts()
     rows = line["shapes"]
     for r in rows:
         print(f"{label} B={r['B']} W={r['W']} E={r['E']}: kernel "
@@ -1208,10 +1499,11 @@ def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
           and all(r["outputs_equal"] for r in rows),
           f"{label}: exit {rc}, {len(rows)} shapes, not all equal")
     per = 1 + line["rounds"] * bench_pileup.LAUNCHES
-    check(launches == per * n_buckets,
-          f"{label}: {launches} launches, not {per} x {n_buckets}")
-    print(f"{label}: all {len(rows)} buckets exact; {launches} launches")
-    by_path[label] = launches
+    check(counts == {"pileup": per * n_buckets, "scan_chop": 0},
+          f"{label}: launches {counts}, not {per} x {n_buckets} pileups "
+          "alone")
+    print(f"{label}: all {len(rows)} buckets exact; launches {counts}")
+    by_path[label] = counts
     shutil.rmtree(hw)
     return by_path
 
@@ -1277,7 +1569,7 @@ def main(argv: list[str]) -> int:
         os.environ.pop(k, None)
     from raft_tpu_torch import cli, gen_dataset, pipeline, profiling
     from raft_tpu_torch import engine_torch as et
-    from raft_tpu_torch.ops import pileup_cuda
+    from raft_tpu_torch.ops import _lib, pileup_cuda, scan_chop_cuda
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -1297,7 +1589,7 @@ def main(argv: list[str]) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    so, log = pileup_cuda.build_kernels(force=True)
+    so, log = _lib.build_kernels(force=True)
     print(f"build: {time.perf_counter() - t0:.2f} s -> {so}")
     for line in log.splitlines():
         if "ptxas" in line or "spill" in line or "error" in line.lower():
@@ -1305,8 +1597,8 @@ def main(argv: list[str]) -> int:
 
     params = cli.parse_args(BENCH_ARGS + ["reads", "paf"])[0]
     if argv and argv[0] == "--ab":
-        base = load_base(argv[1])
-        so, log = base.build_kernels(force=True)
+        base, build_base = load_base(argv[1])
+        so, log = build_base(force=True)
         print(f"base build -> {so}")
         for line in log.splitlines():
             if "ptxas" in line or "spill" in line or "error" in line.lower():
@@ -1323,6 +1615,7 @@ def main(argv: list[str]) -> int:
 
     # 3. kernel vs plain on the card, synthetic buckets
     kcases = kernel_phase(torch, np, et, pileup_cuda, params)
+    sc_cases = scan_chop_phase(torch, np, et, pileup_cuda, params)
 
     os.environ["RAFT_TIMERS"] = "1"
     with tempfile.TemporaryDirectory(prefix="raft_smoke_") as work:
@@ -1354,19 +1647,18 @@ def main(argv: list[str]) -> int:
             if dev == "cuda":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                pileup_cuda.launches = 0
+                zero_launches()
             walls[dev] = run_cli(cli, BENCH_ARGS + [
                 "-o", pre[dev], "--stats-json", sj, "--device", dev,
                 reads, paf], f"bench {dev}")
             if dev == "cuda":
-                launches = pileup_cuda.launches
+                counts = launch_counts()
                 peak = torch.cuda.max_memory_allocated()
             with open(sj) as f:
                 stats[dev] = json.load(f)
         shapes = [tuple(b) for b in stats["cuda"]["buckets"]]
         print(f"buckets (B, W, E) of the cuda run: {len(shapes)} {shapes}")
-        check(launches == len(shapes) > 0,
-              f"pileup launches {launches} != buckets {len(shapes)}")
+        once_each(counts, len(shapes), "32k cuda run")
         check(same_outputs(pre["cuda"], pre["cpu"]),
               "--device cuda and --device cpu outputs differ")
         check(stats["cuda"]["n_reads"] == N_READS
@@ -1380,8 +1672,8 @@ def main(argv: list[str]) -> int:
                   f"{'yes' if st['native_io'] else 'NO'}, stages "
                   + json.dumps({k: round(v, 3)
                                 for k, v in st["stage_seconds"].items()}))
-        print(f"pileup launches in the cuda run: {launches} "
-              f"(= {len(shapes)} buckets); peak device memory "
+        print(f"launches in the cuda run: {counts} (= {len(shapes)} "
+              f"buckets each); peak device memory "
               f"{peak / 2**20:.1f} MiB; outputs byte-equal cuda vs cpu")
 
         # 4c. kernel vs plain on the main path's own buckets
@@ -1395,7 +1687,12 @@ def main(argv: list[str]) -> int:
         print(f"pileup over the {len(real)} buckets of the main path: "
               f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
               f"ms, share {bms / kms:.1%}, exact on all")
-        by_path = {"32k whole-file": launches}
+        kms, pms, bms = (sum(r[k] for r in real)
+                         for k in ("sc_ms", "sc_plain_ms", "sc_bound_ms"))
+        print(f"scan_chop over the {len(real)} buckets of the main path: "
+              f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
+              f"ms, share {bms / kms:.1%}, exact on all")
+        by_path = {"32k whole-file": counts}
 
         # 5. coverage return modes: byte-equal to the host run
         want = digest_and_remove(pre["cuda"])
@@ -1436,25 +1733,25 @@ def main(argv: list[str]) -> int:
         rank_paths, rank_rows = multi_process_phase(
             (reads, paf), os.path.join(work, "dist"), want, devs)
         by_path.update(rank_paths)
-        for f in (reads, paf):
-            os.remove(f)
 
-        # 7. --trace on the small input names the pileup kernel
+        # 7. --trace on the small input names both kernels (the first
+        # profiler session of this process, as a user's run would be)
         tdir = os.path.join(work, "trace")
         st = drive(torch, cli, pileup_cuda, BENCH_ARGS + ["--trace", tdir],
                    small, os.path.join(work, "tr"), "small --trace", 400)
         by_path["small --trace"] = st["launches"]
         with open(os.path.join(tdir, profiling.TRACE_FILE)) as f:
             events = json.load(f)["traceEvents"]
-        kev = [e for e in events
-               if any(k in e.get("name", "")
-                      for k in pileup_cuda.KERNEL_NAMES)]
-        check(len(kev) >= st["launches"],
-              f"--trace: {len(kev)} pileup kernel events for "
-              f"{st['launches']} launches")
-        print(f"--trace: {len(events)} events, {len(kev)} name the "
-              f"kernel ({kev[0]['name']}), "
-              f"{sum(e.get('dur', 0) for e in kev):.1f} us in all")
+        for kern, names in (("pileup", pileup_cuda.KERNEL_NAMES),
+                            ("scan_chop", scan_chop_cuda.KERNEL_NAMES)):
+            kev = [e for e in events
+                   if any(k in e.get("name", "") for k in names)]
+            check(len(kev) >= st["launches"][kern],
+                  f"--trace: {len(kev)} {names} kernel events for "
+                  f"{st['launches'][kern]} launches")
+            print(f"--trace: {len(events)} events, {len(kev)} name the "
+                  f"kernel ({kev[0]['name']}), "
+                  f"{sum(e.get('dur', 0) for e in kev):.1f} us in all")
         # --pallas and --no-pallas run the one CUDA pileup, once a bucket
         for flag in ("--pallas", "--no-pallas"):
             pf = os.path.join(work, "pf")
@@ -1464,6 +1761,10 @@ def main(argv: list[str]) -> int:
             digest_and_remove(pf)
             by_path[f"small {flag}"] = st["launches"]
         print("small --pallas and --no-pallas == small cuda run (4 files)")
+        # 7b. one profiled 32k compute_torch pass: the two kernels only
+        profile_step(torch, et, pipeline, params, reads, paf, len(shapes))
+        for f in (reads, paf):
+            os.remove(f)
 
         # 8. streaming at real size: auto-stream, whole-file, spill
         t0 = time.perf_counter()
@@ -1555,16 +1856,20 @@ def main(argv: list[str]) -> int:
 
     return report(torch, name, "32k whole-file", by_path, real,
                   kcases + real + big_rows + shard_rows + rank_rows
-                  + eval_rows)
+                  + eval_rows, sc_cases)
 
 
-def report(torch, name, main_label, by_path, main_rows, all_rows) -> int:
-    """The closing lines: the kernel table (launches of the main path's
-    run and of every path, the largest error of every comparison, the
-    kernel, plain and bound milliseconds summed over the main path's
-    buckets; no single PyTorch call computes windowed interval coverage,
-    so ``library_ms`` is null), then the result. ``--ab`` has no main
-    path run and prints no kernel table."""
+def report(torch, name, main_label, by_path, main_rows, all_rows,
+           sc_cases=()) -> int:
+    """The closing lines: the kernel table, then the result. For each
+    kernel: the launches of the main path's run and of every path
+    (``by_path``: each path's launches by kernel), the largest
+    error of every comparison (``sc_cases`` are step 3b's), the kernel,
+    plain and bound
+    milliseconds summed over the main path's buckets; no single PyTorch
+    call computes windowed interval coverage, or the repeat scan and
+    fragment spans, so ``library_ms`` is null. ``--ab`` has no main path
+    run and prints no kernel table."""
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "raft_tpu"))
     check(not foreign, f"imported {foreign}")
@@ -1573,12 +1878,30 @@ def report(torch, name, main_label, by_path, main_rows, all_rows) -> int:
             "name": "pileup", "route": "cuda",
             "source": "raft_tpu_torch/csrc/pileup.cu",
             "replaces": "raft_tpu/ops/pileup_pallas.py:39",
-            "launches": by_path[main_label], "launches_by_path": by_path,
+            "launches": by_path[main_label]["pileup"],
+            "launches_by_path": {k: v["pileup"] for k, v in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in all_rows),
             "ms": sum(r["ms"] for r in main_rows),
             "plain_ms": sum(r["plain_ms"] for r in main_rows),
             "bound_ms": sum(r["bound_ms"] for r in main_rows),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in main_rows)
+                         else "operations"),
+            "library_ms": None}, {
+            "name": "scan_chop", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/scan_chop.cu",
+            "replaces": "raft_tpu/engine_jax.py:277-316,323-374,432-437,"
+                        "446-451",
+            "launches": by_path[main_label]["scan_chop"],
+            "launches_by_path": {k: v["scan_chop"]
+                                 for k, v in by_path.items()},
+            "max_abs_err": max(r["sc_max_abs_err"] for r in
+                               [*sc_cases, *all_rows]
+                               if "sc_max_abs_err" in r),
+            "ms": sum(r["sc_ms"] for r in main_rows),
+            "plain_ms": sum(r["sc_plain_ms"] for r in main_rows),
+            "bound_ms": sum(r["sc_bound_ms"] for r in main_rows),
+            "bound_by": ("bytes" if all(r["sc_bound_by"] == "bytes"
                                         for r in main_rows)
                          else "operations"),
             "library_ms": None}]}))

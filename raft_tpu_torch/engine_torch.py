@@ -4,10 +4,13 @@
 Every public stage keeps the JAX engine's name, argument order and
 column layout, so each is held against its ``engine_jax`` twin on the
 same inputs (``tests/test_torch_stages.py``). The stages are plain
-PyTorch on tensors of any device; ``device_step`` routes the coverage
-pileup through ``raft_tpu_torch.ops.pileup_cuda.pileup``, which launches
-the hand-written Hopper kernel for CUDA tensors and runs its plain twin
-for CPU tensors.
+PyTorch on tensors of any device. ``device_step`` runs two wrappers, each
+of which launches a hand-written Hopper kernel for CUDA tensors and runs
+its plain twin for CPU tensors: ``ops.pileup_cuda.pileup`` for the
+coverage, then ``ops.scan_chop_cuda.scan_chop`` for the repeat scan, the
+markers and fragments, the ``diff8`` diff and the packing, whose twin is
+this module's ``repeat_scan`` and ``chop_markers``. So on a card no
+plain-torch stage runs in the step.
 
 Semantics carried over from the JAX engine:
 
@@ -43,6 +46,7 @@ from raft_tpu_torch.io.paf import OverlapTable
 from raft_tpu_torch.params import AlgoParams
 from raft_tpu_torch.result import ComputeResult
 from raft_tpu_torch.ops.pileup_cuda import decode_events, ev_bits_w0, pileup
+from raft_tpu_torch.ops.scan_chop_cuda import scan_chop
 
 I32 = torch.int32
 COV_OUT_MODES = ("host", "diff8", "cov")
@@ -329,7 +333,8 @@ def unpack_out(packed: np.ndarray, cfg: StaticCfg) -> dict:
 
 def device_step(lens, ev_off, ev_pk, cfg: StaticCfg) -> dict:
     """Full per-bucket pipeline: pileup → repeat scan → chop, on the
-    inputs' device; the dict of ``engine_jax.device_step_impl``.
+    inputs' device; the dict of ``engine_jax.device_step_impl``. Two
+    kernels on a card: the pileup, then ``scan_chop`` for the rest.
 
     ``packed`` is the ``[B, 2K+2F+5]`` int32 per-read array. By
     ``cfg.cov_out``: ``diff8`` adds the int8 ``[B, W]`` per-window diff,
@@ -338,22 +343,9 @@ def device_step(lens, ev_off, ev_pk, cfg: StaticCfg) -> dict:
     rows); ``cov`` adds the int32 ``[B, W]`` coverage; ``host`` adds
     nothing. ``ok8`` is 1 on every row outside ``diff8``."""
     cov = pileup(ev_off, ev_pk, cfg)
-    rep_s, rep_e, rep_n, rep_len_sum = repeat_scan(cov, lens, cfg)
-    frags = chop_markers(lens, rep_s, rep_e, cfg)
-    out = {}
-    if cfg.cov_out == "diff8":
-        diff = torch.diff(cov, dim=1,
-                          prepend=torch.zeros_like(cov[:, :1]))
-        ok8 = (diff.amax(dim=1) <= 127) & (diff.amin(dim=1) >= -128)
-        out["diff8"] = diff.to(torch.int8)
-    else:
-        ok8 = torch.ones(cfg.B, dtype=torch.bool, device=lens.device)
-        if cfg.cov_out == "cov":
-            out["cov"] = cov
-    out["packed"] = torch.cat(
-        [rep_s, rep_e, frags["char_start"], frags["char_len"],
-         rep_n[:, None], rep_len_sum[:, None], frags["n_frag"][:, None],
-         frags["whole"][:, None].to(I32), ok8[:, None].to(I32)], dim=1)
+    out = scan_chop(cov, lens, cfg)
+    if cfg.cov_out == "cov":
+        out["cov"] = cov
     return out
 
 

@@ -14,8 +14,8 @@ unpacks with.
 
 For a CPU tensor the wrapper runs ``pileup_torch``; for a CUDA tensor it
 launches the kernel or raises — there is no fallback. The kernel is built
-with ``nvcc`` from ``csrc/*.cu`` into ``_build/`` at first use, and again
-whenever a source is newer than the library.
+with the port's other kernels into one library at first use
+(``ops/_lib.py``).
 
 ``launch_plan`` picks the kernel's regime and launch shape from (B, W) in
 Python, where the CPU tests can check it: warp-per-row blocks for rows
@@ -26,26 +26,14 @@ why.
 
 from __future__ import annotations
 
-import ctypes
-import glob
-import os
-import shutil
-import subprocess
-import threading
 from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
+from raft_tpu_torch.ops import _lib
+
 if TYPE_CHECKING:
     from raft_tpu_torch.engine_torch import StaticCfg
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_NAME = "libraft_kernels.so"
-DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the CUDA toolkit's install prefix
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # The kernels' names as a profiler trace shows them.
 KERNEL_NAMES = ("pileup_rows", "pileup_stripes")
@@ -64,69 +52,6 @@ R2_STATIC_SMEM = 128   # regime 2: its static shared memory (32 warp sums)
 R2_ALIGN = 32 * 4      # a stripe gives each warp a 16-byte aligned share
 STRIPE = 24576         # regime 2: most windows per block (best at W=2^20)
 MIN_STRIPE = 4096      # regime 2: fewest windows per block of a wide row
-
-# Kernel launches (CUDA tensors only); a caller resets it to 0 before the
-# run it wants to count.
-launches = 0
-
-_lib = None
-_lock = threading.Lock()
-
-
-def find_nvcc() -> str | None:
-    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default
-    install prefix."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    cands += [shutil.which("nvcc"),
-              os.path.join(DEFAULT_CUDA_HOME, "bin", "nvcc")]
-    for c in cands:
-        if c and os.access(c, os.X_OK):
-            return c
-    return None
-
-
-def build_kernels(build_dir: str = BUILD_DIR,
-                  force: bool = False) -> tuple[str, str]:
-    """Compile ``csrc/*.cu`` into ``build_dir/libraft_kernels.so`` when it
-    is missing or older than a source (or ``force``). Returns the library
-    path and the compiler's output ("" when nothing was built). Raises
-    RuntimeError when nvcc is missing or fails."""
-    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    so = os.path.join(build_dir, LIB_NAME)
-    if (not force and os.path.exists(so) and os.path.getmtime(so)
-            >= max(os.path.getmtime(s) for s in srcs)):
-        return so, ""
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "cannot build the CUDA pileup kernel: nvcc not found (set "
-            "CUDA_HOME or put nvcc on PATH); CUDA tensors have no other "
-            "pileup path")
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building the pileup kernel "
-                           f"(rc {res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    return so, res.stdout + res.stderr
-
-
-def _get_lib():
-    global _lib
-    with _lock:
-        if _lib is None:
-            so, _ = build_kernels()
-            lib = ctypes.CDLL(so)
-            lib.raft_pileup.argtypes = ([ctypes.c_void_p] * 3
-                                        + [ctypes.c_int] * 12
-                                        + [ctypes.c_void_p])
-            lib.raft_pileup.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 class LaunchPlan(NamedTuple):
@@ -243,7 +168,6 @@ def pileup(ev_off, ev_pk, cfg: StaticCfg):
     uint32 pack32 words, or int32 [E, 2] (w0, span) pairs — the output of
     ``engine_torch.pack_events``. CPU tensors take ``pileup_torch``; CUDA
     tensors launch the kernel on the current stream."""
-    global launches
     _check(ev_off, ev_pk, cfg)
     dev = ev_pk.device
     if dev.type == "cpu":
@@ -256,7 +180,7 @@ def pileup(ev_off, ev_pk, cfg: StaticCfg):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = launch_plan(cfg.B, cfg.W, sms)
     k = 0 if pairs else ev_bits_w0(cfg.W)
-    lib = _get_lib()
+    lib = _lib.get_lib()
     cov = torch.empty((cfg.B, cfg.W), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -267,5 +191,5 @@ def pileup(ev_off, ev_pk, cfg: StaticCfg):
                               int(plan.tma_store), stream)
     if err:
         raise RuntimeError(f"pileup kernel launch failed: CUDA error {err}")
-    launches += 1
+    _lib.launches["pileup"] += 1
     return cov

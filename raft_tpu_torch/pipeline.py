@@ -41,7 +41,7 @@ from raft_tpu_torch.io.fasta import (ReadStore, load_reads, parse_sim_align,
                                      parse_sim_chr, parse_sim_end_pos,
                                      parse_sim_start_pos)
 from raft_tpu_torch.io.paf import OverlapTable, load_paf
-from raft_tpu_torch.ops import oracle, pileup_cuda
+from raft_tpu_torch.ops import _lib, oracle
 from raft_tpu_torch.params import AlgoParams
 
 OUT_NAMES = (".reads.fasta", ".coverage.txt", ".long_repeats.txt",
@@ -319,23 +319,23 @@ class TorchRunStats(RunStats):
     the schedule (``whole`` or ``chunked``) with its number of chunks, and
     the devices the torch engine ran on (one per shard; none on the oracle
     engine). Under sharding ``buckets`` holds every shard's per-shard
-    shape, one entry per pileup launch. ``pileup_launches`` is how far
-    ``pileup_cuda.launches`` rose during the run: the CUDA kernel's
-    launches, 0 on the CPU (a second run in the same process at the same
-    time would add its own)."""
+    shape, one entry per pileup launch. ``launches`` is how far each
+    CUDA kernel's count (``ops._lib.launches``) rose during the run: one
+    launch of each per bucket on a card, none on the CPU (a second run
+    in the same process at the same time would add its own)."""
     native_io: bool = False
     buckets: list = dataclasses.field(default_factory=list)
     schedule: str = "whole"
     n_chunks: int = 1
     devices: list = dataclasses.field(default_factory=list)
-    pileup_launches: int = 0
+    launches: dict = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> dict:
         return {**super().to_json(), "native_io": self.native_io,
                 "buckets": [list(b) for b in self.buckets],
                 "schedule": self.schedule, "n_chunks": self.n_chunks,
                 "devices": self.devices,
-                "pileup_launches": self.pileup_launches}
+                "launches": self.launches}
 
     def on_bucket(self, cfg, *_):
         """``compute_torch(on_bucket=...)`` hook: record the shape."""
@@ -460,7 +460,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     ``device``; the outputs are the same."""
     if engine not in ("torch", "oracle"):
         raise ValueError(f"unknown engine {engine!r}")
-    launches0 = pileup_cuda.launches
+    launches0 = _lib.launch_counts()
     if chunk_reads is None and engine == "torch" and use_native is not False:
         chunk_reads = _auto_chunk_reads(read_path, paf_path)
         if chunk_reads and verbose:
@@ -479,7 +479,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
                                    device=device, on_bucket=on_bucket,
                                    devices=devices)
         if st is not None:
-            st.pileup_launches = pileup_cuda.launches - launches0
+            st.launches = _lib.launch_counts(launches0)
             return st
         if verbose:
             # stderr: stdout stays line-identical to the reference, and
@@ -573,7 +573,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     finally:
         cov_pool.shutdown()
     stats.emit_bytes = _sum_output_bytes(prefix, sfx)
-    stats.pileup_launches = pileup_cuda.launches - launches0
+    stats.launches = _lib.launch_counts(launches0)
     return stats
 
 

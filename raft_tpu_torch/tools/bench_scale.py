@@ -20,8 +20,8 @@ every path. Each subprocess reports its own peak RSS (ours via
 ``--stats-json``; the reference via a rusage wrapper) so one run's
 footprint never masks another's. Each of the port's runs also carries,
 from its ``--stats-json``, the ``devices`` it ran on, its number of
-buckets (``n_buckets``: pileup launches on the card) and the CUDA
-kernel's launches (``pileup_launches``), so a run that did not touch the
+buckets (``n_buckets``) and each CUDA kernel's launches (``launches``,
+one of each per bucket on the card), so a run that did not touch the
 card shows.
 
 Usage::
@@ -55,7 +55,7 @@ OUT_EXTS = [".reads.fasta", ".coverage.txt", ".long_repeats.txt",
 def run_facts(st: dict) -> dict:
     """What a port run's ``--stats-json`` says of where it ran."""
     return {"devices": st.get("devices"), "n_buckets": len(st["buckets"]),
-            "pileup_launches": st.get("pileup_launches")}
+            "launches": st.get("launches")}
 
 
 def _run_ours(reads: str, paf: str, prefix: str, extra: list[str],

@@ -110,21 +110,21 @@ def _free_port() -> int:
 
 
 # One rank of a real run: run_distributed on the CPU, then the rank, its
-# pileup launch count (0: CPU tensors never launch the kernel) and
+# kernel launch count (0: CPU tensors never launch a kernel) and
 # whether jax or any raft_tpu module was imported. ``wholeparse`` hides
 # the port's native index, so the run takes the whole-parse fallback.
 _WORKER = """\
 import sys
 from raft_tpu_torch.cli import parse_args
 from raft_tpu_torch.io import native
-from raft_tpu_torch.ops import pileup_cuda
+from raft_tpu_torch.ops import _lib
 from raft_tpu_torch.parallel import run_distributed
 if {wholeparse}:
     native.index_reads = lambda path: None
 params = parse_args({args!r})[0]
 run_distributed({reads!r}, {paf!r}, params, coordinator={coord!r},
                 num_processes={n}, process_id={pid}, device="cpu")
-print("RANK", {pid}, "LAUNCHES", pileup_cuda.launches,
+print("RANK", {pid}, "LAUNCHES", sum(_lib.launches.values()),
       "JAX", "jax" in sys.modules, "RAFT_TPU",
       any(m.split(".")[0] == "raft_tpu" for m in sys.modules))
 """

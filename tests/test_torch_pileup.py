@@ -19,7 +19,7 @@ from raft_tpu.ops.pileup_pallas import EB, pileup_pallas  # noqa: E402
 from raft_tpu.params import AlgoParams as JAlgoParams  # noqa: E402
 from raft_tpu_torch import bucketing  # noqa: E402
 from raft_tpu_torch import engine_torch as et  # noqa: E402
-from raft_tpu_torch.ops import pileup_cuda  # noqa: E402
+from raft_tpu_torch.ops import _lib, pileup_cuda  # noqa: E402
 from raft_tpu_torch.params import AlgoParams  # noqa: E402
 
 PARAMS = AlgoParams(est_cov=10, reso=50)
@@ -182,15 +182,16 @@ def test_pileup_wrapper_rejects_bad_inputs():
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
-    """With no nvcc the build raises a clear error and produces nothing —
-    it never hands back the plain version in the kernel's place."""
+    """With no nvcc the build raises a clear error, naming every kernel
+    source of the one library, and produces nothing — it never hands back
+    the plain version in the kernel's place."""
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
-    monkeypatch.setattr(pileup_cuda, "DEFAULT_CUDA_HOME",
-                        str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_lib, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
     out = tmp_path / "build"
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        pileup_cuda.build_kernels(build_dir=str(out))
+    with pytest.raises(RuntimeError, match="nvcc not found") as e:
+        _lib.build_kernels(build_dir=str(out))
+    assert "pileup.cu, scan_chop.cu" in str(e.value)
     assert not out.exists()
 
 
@@ -315,10 +316,10 @@ def test_pileup_kernel_matches_plain_on_cuda():
         cfg = et.derive_cfg(B, W, E, PARAMS)
         off = torch.from_numpy(ev_off).cuda()
         pk = _wire(w0, w1, cfg).cuda()
-        before = pileup_cuda.launches
+        before = _lib.launch_counts()
         got = pileup_cuda.pileup(off, pk, cfg)
         torch.cuda.synchronize()
-        assert pileup_cuda.launches == before + 1
+        assert _lib.launch_counts(before) == {"pileup": 1, "scan_chop": 0}
         torch.testing.assert_close(got, pileup_cuda.pileup_torch(off, pk, cfg),
                                    rtol=0, atol=0)
 
