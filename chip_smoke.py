@@ -25,9 +25,13 @@ kernel's coverage and the bucket's lengths, every output exactly.
    TB/s) and the kernel's share of it. Then (3b) ``scan_chop`` against its
    twin, exactly, in ``host`` and ``diff8`` mode, on ``SCAN_CHOP_CASES``:
    the pileup kernel's output at (4096, 512) and (8, 2^20) with the bench
-   flags, and crafted rows (alternating runs, no run, padding, int8
-   overflow) over a parameter sweep; each with both median times and its
-   bound (``scan_chop_bound``).
+   flags, crafted rows (alternating runs, no run, padding, int8
+   overflow) over a parameter sweep, and few wide rows in the kernel's
+   cluster regime (a run across every block boundary, a row high
+   throughout, a read ending mid-block, rep_n > K, a wrapped flank, an
+   int8 overflow at a block boundary; slots and survivors past shared
+   memory); each with both median times and its bound
+   (``scan_chop_bound``).
 4. Checks the CLI's ``--device cuda`` output against the numpy oracle
    engine on a small dataset, then runs the whole-file CLI on the 32k-read
    bench dataset (``gen_dataset``, seed 7) with ``--device cuda`` and
@@ -148,11 +152,13 @@ the plain twin on its own card; then ``run_distributed`` in N processes,
 one card each (``CUDA_VISIBLE_DEVICES``), every launch held as in step
 6c. All byte-equal to the unsharded run; the same two closing lines.
 
-``--ab DIR`` runs steps 1-2, builds the pileup kernel of another tree
-(DIR holds its ``raft_tpu_torch/``, e.g. a ``git archive`` of the parent
-commit) with that tree's own wrapper, and times the two in turns (DIR's,
-this, this, DIR's) on step 3's shapes and on the 32k main path's buckets,
-each held exactly against the plain twin.
+``--ab DIR`` runs steps 1-2, builds the kernels of another tree (DIR
+holds its ``raft_tpu_torch/``, e.g. a ``git archive`` of the parent
+commit) with that tree's own wrappers, and times each pair in turns
+(DIR's, this, this, DIR's), each held exactly against the plain twin:
+the pileup on step 3's shapes and on the 32k main path's buckets,
+``scan_chop`` on step 3b's inputs (``host`` and ``diff8``) and on the
+32k buckets' coverage.
 
 Any failed check exits nonzero before the last line. Without a CUDA
 device it exits 2 and prints no result.
@@ -207,30 +213,55 @@ KERNEL_CASES = [
     (8, 1 << 16, 3000, "pairs"), (8, 1 << 20, 20000, "pairs"),
     (33, 7, 5, "pack32"), (2, 65538, 3000, "pairs")]
 # Step 3b, scan_chop on the card: (label, B, W, AlgoParams fields or None
-# for the bench flags, coverage source). The two bench shapes on the
-# pileup kernel's output, then crafted rows over a sweep: a small -p (M in
-# the thousands at W=4096), repeat_length = reso (K = W/2 + 1), -f 0 with
-# div 1 and -v 0, a flank larger than a read, a flank whose products wrap
-# int32 (repeat slots out of order: the kernel's linear scan).
+# for the bench flags, coverage source, K or None for derive_cfg's). The
+# two bench shapes on the pileup kernel's output, then crafted rows over a
+# sweep: a small -p (M in the thousands at W=4096), repeat_length = reso
+# (K = W/2 + 1; at W=8192 too many slots for the rows regime), -f 0
+# with div 1 and -v 0, a flank larger than a read, a flank whose products
+# wrap int32 (repeat slots out of order: the kernel's linear scan). Then
+# few wide rows (``wide_rows``), the cluster regime: the bench flags at
+# 2^20 and at a width that is neither a multiple of the tile nor of 4,
+# more runs than K slots, a wrapped flank and repeat_length = reso (more
+# slots than a block copies to shared memory), a small -p (survivors in
+# the global scratch).
+BENCH_FIELDS = dict(repeat_length=10000, interval_length=10000,
+                    read_length=20000, flanking_length=1000,
+                    overlap_length=500)
 SCAN_CHOP_CASES = [
-    ("bench", 4096, 512, None, "pileup"),
-    ("bench", 8, 1 << 20, None, "pileup"),
+    ("bench", 4096, 512, None, "pileup", None),
+    ("bench", 8, 1 << 20, None, "pileup", None),
     ("small -p", 64, 4096, dict(repeat_length=100, interval_length=100,
                                 read_length=200, flanking_length=1000,
-                                overlap_length=50), "crafted"),
+                                overlap_length=50), "crafted", None),
     ("repeat_length = reso", 256, 1024, dict(
         repeat_length=50, interval_length=1000, read_length=2000,
-        flanking_length=100, overlap_length=100), "crafted"),
+        flanking_length=100, overlap_length=100), "crafted", None),
+    ("repeat_length = reso, W 8192", 64, 8192, dict(
+        repeat_length=50, interval_length=1000, read_length=2000,
+        flanking_length=100, overlap_length=100), "crafted", None),
     ("-f 0, div 1, -v 0", 1024, 512, dict(
         repeat_length=1000, interval_length=2000, read_length=2000,
-        flanking_length=0, overlap_length=0), "crafted"),
+        flanking_length=0, overlap_length=0), "crafted", None),
     ("flank > read", 1024, 512, dict(
         repeat_length=1000, interval_length=2000, read_length=5000,
-        flanking_length=100_000, overlap_length=500), "crafted"),
+        flanking_length=100_000, overlap_length=500), "crafted", None),
     ("flank wraps int32", 256, 512, dict(
         repeat_length=300, interval_length=1000, read_length=2000,
         flanking_length=2**31 - 1 - 10_000, overlap_length=200),
-     "crafted"),
+     "crafted", None),
+    ("wide bench", 8, 1 << 20, BENCH_FIELDS, "wide", None),
+    ("wide bench, W % 4 != 0", 8, 100_001, BENCH_FIELDS, "wide", None),
+    ("wide rep_n > K", 8, 1 << 20, BENCH_FIELDS, "wide", 3),
+    ("wide flank wraps int32", 8, 1 << 16, dict(
+        repeat_length=300, interval_length=1000, read_length=2000,
+        flanking_length=2**31 - 1 - 10_000, overlap_length=200), "wide",
+     None),
+    ("wide repeat_length = reso", 8, 1 << 16, dict(
+        repeat_length=50, interval_length=1000, read_length=2000,
+        flanking_length=100, overlap_length=100), "wide", None),
+    ("wide small -p", 8, 1 << 17, dict(
+        repeat_length=10000, interval_length=50, read_length=100,
+        flanking_length=1000, overlap_length=20), "wide", None),
 ]
 # Step 9, the evaluation path: the recorded rows of the ground-truth
 # evaluation (both sweeps at 30x, 3 repeat families x 4 copies x 15 kb)
@@ -393,8 +424,13 @@ def hold_scan_chop(torch, np, cfg, cov, lens_d, label, times=None):
             launches=5, rounds=3)
         if times is not None:
             times[key] = ms, plain
+        plan = scan_chop_cuda.launch_plan(
+            cfg.B, cfg.W, cfg.M, cfg.K, cfg.F,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
         print(f"{label} scan_chop B={cfg.B:5d} W={cfg.W:8d} M={cfg.M} "
-              f"K={cfg.K} F={cfg.F} {cfg.cov_out} {dev} exact, rep_n "
+              f"K={cfg.K} F={cfg.F} {cfg.cov_out} {dev} regime "
+              f"{plan.regime} cluster {plan.cluster} block {plan.block} "
+              f"exact, rep_n "
               f"{int(packed[:, 2 * cfg.K + 2 * cfg.F].sum())}  kernel "
               f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.5f} ms "
               f"({by})  share {bms / ms:.1%}")
@@ -493,20 +529,45 @@ def crafted_rows(np, rng, B, W, cfg):
     return cov, lens
 
 
-def scan_chop_phase(torch, np, et, pileup_cuda, params):
-    """``scan_chop`` against its plain twin on the card, exactly, in
-    ``host`` and ``diff8`` mode: on the pileup kernel's output at the two
-    bench shapes (``SCAN_CHOP_CASES`` of source ``pileup``: reads of half
-    to all the bucket's width, the last sixteenth padding), and on crafted
-    rows (``crafted_rows``) over a sweep of the parameters. Returns the
-    rows, each with its times and bound."""
+def wide_rows(np, rng, B, W, cfg):
+    """``crafted_rows``, then the rows of a cluster regime's corners (B >=
+    6): a run that crosses every block boundary of the row, a row high
+    throughout, a read whose last window lies mid-block, padding, a jump
+    of +-200 at the first window of the second and third blocks (int8
+    overflow of the diff at a block boundary), and runs of the qualifying
+    length one window apart (rep_n up to K)."""
+    from raft_tpu_torch.ops import scan_chop_cuda
+    cov, lens = crafted_rows(np, rng, B, W, cfg)
+    hc, reso = cfg.high_cov, cfg.reso
+    plan = scan_chop_cuda.launch_plan(B, W, cfg.M, cfg.K, cfg.F)
+    span = (plan.seg * plan.block // 32 if plan.regime == 2 else W)
+    full = W * reso
+    cov[:6] = rng.integers(0, hc, (6, W))
+    lens[:6] = full
+    cov[0, span // 2:W - span // 2] = hc
+    cov[1] = hc + 5
+    n_win = min(W - 1, span * max(1, plan.cluster // 2) + span // 2 + 3)
+    lens[2] = (n_win - 1) * reso + 1
+    cov[2, n_win - 10:] = hc + 1
+    lens[3] = 0
+    cov[4, span:2 * span] = 200
+    run = max(1, -(-cfg.repeat_length // reso))
+    cov[5] = np.where(np.arange(W) % (run + 1) < run, hc, hc - 1)
+    return cov, lens
+
+
+def scan_chop_inputs(torch, np, et, pileup_cuda, params):
+    """Step 3b's inputs, one per ``SCAN_CHOP_CASES`` entry: (label, cfg,
+    coverage on the card, lengths on the card). Source ``pileup``: the
+    pileup kernel's output on events as ``KERNEL_CASES`` has these shapes,
+    reads of half to all the bucket's width, the last sixteenth padding;
+    ``crafted``: ``crafted_rows``; ``wide``: ``wide_rows``."""
     from raft_tpu_torch.params import AlgoParams
     rng = np.random.default_rng(8)
-    rows = []
-    for label, B, W, fields, source in SCAN_CHOP_CASES:
+    for label, B, W, fields, source, K in SCAN_CHOP_CASES:
         p = params if fields is None else AlgoParams(
             est_cov=params.est_cov, cov_mul=params.cov_mul, **fields)
-        if source == "pileup":  # events as KERNEL_CASES has these shapes
+        if source == "pileup":
             cfg, ev_off, pk = make_case(np, et, p, B, W, 60 if W < 4096
                                         else 20000, "pack32" if W < 4096
                                         else "pairs", rng)
@@ -518,12 +579,25 @@ def scan_chop_phase(torch, np, et, pileup_cuda, params):
             lens[B - max(1, B // 16):] = 0
         else:
             cfg = et.derive_cfg(B, W, 64, p)
-            cov_h, lens = crafted_rows(np, rng, B, W, cfg)
+            if K is not None:
+                cfg = dataclasses.replace(cfg, K=K)
+            build = crafted_rows if source == "crafted" else wide_rows
+            cov_h, lens = build(np, rng, B, W, cfg)
             cov = torch.from_numpy(cov_h).cuda()
-        lens_d = torch.from_numpy(lens).cuda()
+        yield label, cfg, cov, torch.from_numpy(lens).cuda()
+
+
+def scan_chop_phase(torch, np, et, pileup_cuda, params):
+    """``scan_chop`` against its plain twin on the card, exactly, in
+    ``host`` and ``diff8`` mode, on step 3b's inputs
+    (``scan_chop_inputs``). Returns the rows, each with its times and
+    bound."""
+    rows = []
+    for label, cfg, cov, lens_d in scan_chop_inputs(torch, np, et,
+                                                    pileup_cuda, params):
         for mode in ("host", "diff8"):
             c = dataclasses.replace(cfg, cov_out=mode)
-            rows.append(dict(B=B, W=W, label=label, **hold_scan_chop(
+            rows.append(dict(B=cfg.B, W=cfg.W, label=label, **hold_scan_chop(
                 torch, np, c, cov, lens_d, f"scan_chop case {label}")))
     return rows
 
@@ -599,11 +673,12 @@ def main_path_buckets(torch, et, pipeline, params, reads, paf):
 
 
 def load_base(root):
-    """The pileup wrapper of another tree, under its own module name, so
-    that it builds and loads that tree's kernel library from that tree:
+    """The kernel wrappers of another tree, under their own module names,
+    so that they build and load that tree's kernel library from that tree:
     where the tree has a library loader of its own (``ops/_lib.py``), the
-    wrapper is loaded with that one in place of this tree's. Returns (the
-    wrapper, the function that builds its library)."""
+    wrappers are loaded with that one in place of this tree's. Returns
+    (the pileup wrapper, the ``scan_chop`` wrapper or None where the tree
+    has none, the function that builds its library)."""
     import raft_tpu_torch.ops as ops
     ops_dir = os.path.join(root, "raft_tpu_torch", "ops")
 
@@ -616,22 +691,29 @@ def load_base(root):
 
     if not os.path.exists(os.path.join(ops_dir, "_lib.py")):
         mod = load("base_pileup_cuda", "pileup_cuda.py")
-        return mod, mod.build_kernels
+        return mod, None, mod.build_kernels
     lib = load("base_kernel_lib", "_lib.py")
     ours = ops._lib
-    ops._lib = lib  # what the wrapper's `from raft_tpu_torch.ops import
+    ops._lib = lib  # what the wrappers' `from raft_tpu_torch.ops import
     try:            # _lib` binds
         mod = load("base_pileup_cuda", "pileup_cuda.py")
+        sc = (load("base_scan_chop_cuda", "scan_chop_cuda.py")
+              if os.path.exists(os.path.join(ops_dir, "scan_chop_cuda.py"))
+              else None)
     finally:
         ops._lib = ours
-    return mod, lib.build_kernels
+    return mod, sc, lib.build_kernels
 
 
-def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, work,
-             gen_dataset):
-    """``--ab``: the base tree's kernel against this one, in turns (base,
-    this, this, base), on the synthetic shapes and the 32k main path's
-    buckets, each exact against the plain twin."""
+def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, base_sc,
+             work, gen_dataset):
+    """``--ab``: the base tree's kernels against this tree's, in turns
+    (base, this, this, base), each exact against the plain twin: the
+    pileup on the synthetic shapes and the 32k main path's buckets;
+    ``scan_chop`` (where the base tree has it) on step 3b's inputs in
+    ``host`` and ``diff8`` mode and on the 32k buckets' coverage in
+    ``host`` mode (the main path's)."""
+    from raft_tpu_torch.ops import scan_chop_cuda
     rng = np.random.default_rng(7)
     cases = []
     for B, W, per_row, wire in KERNEL_CASES:
@@ -640,8 +722,8 @@ def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, work,
                       torch.from_numpy(np.ascontiguousarray(pk)).cuda()))
     reads, paf = gen_dataset(os.path.join(work, "bench"), n_reads=N_READS,
                              n_overlaps=N_READS * 30, est_cov=20, seed=7)
-    cases += [("32k bucket", cfg, off, pk) for cfg, _, off, pk in
-              main_path_buckets(torch, et, pipeline, params, reads, paf)]
+    buckets = main_path_buckets(torch, et, pipeline, params, reads, paf)
+    cases += [("32k bucket", cfg, off, pk) for cfg, _, off, pk in buckets]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     one = torch.zeros(1, dtype=torch.int32, device="cuda")
     print(f"launch floor (one 4-byte fill kernel, the same timing): "
@@ -666,11 +748,54 @@ def ab_phase(torch, np, et, pileup_cuda, pipeline, params, base, work,
             tot["base"] += statistics.median([t[0], t[3]])
             tot["this"] += statistics.median([t[1], t[2]])
             tot["bound"] += bms
-    print(f"ab the 32k main path's {len(cases) - len(KERNEL_CASES)} "
-          f"buckets, summed medians: base {tot['base']:.4f} ms, this "
-          f"{tot['this']:.4f} ms, bound {tot['bound']:.4f} ms, share base "
+    print(f"ab the 32k main path's {len(buckets)} buckets, summed medians: "
+          f"base {tot['base']:.4f} ms, this {tot['this']:.4f} ms, bound "
+          f"{tot['bound']:.4f} ms, share base "
           f"{tot['bound'] / tot['base']:.1%} this "
           f"{tot['bound'] / tot['this']:.1%}")
+    if base_sc is None:
+        print("ab scan_chop: the base tree has no scan_chop kernel")
+        return
+
+    def turns(label, cfg, cov, lens_d):
+        """Both trees' scan_chop exact against the twin, then timed in
+        turns; returns (base median, this median, bound)."""
+        want = scan_chop_cuda.scan_chop_torch(cov, lens_d, cfg)
+        for name, mod in (("base", base_sc), ("this", scan_chop_cuda)):
+            got = mod.scan_chop(cov, lens_d, cfg)
+            check(set(got) == set(want)
+                  and all(torch.equal(got[k], want[k]) for k in want),
+                  f"--ab {name}: scan_chop != plain, {label} B={cfg.B} "
+                  f"W={cfg.W} {cfg.cov_out}")
+        t = [device_ms(torch, lambda m=m: m.scan_chop(cov, lens_d, cfg))
+             for m in (base_sc, scan_chop_cuda, scan_chop_cuda, base_sc)]
+        bms, by = scan_chop_bound(np, cfg, want["packed"].cpu().numpy())
+        plan = scan_chop_cuda.launch_plan(cfg.B, cfg.W, cfg.M, cfg.K, cfg.F,
+                                          sms)
+        b, h = statistics.median([t[0], t[3]]), statistics.median(t[1:3])
+        print(f"ab scan_chop {label} B={cfg.B} W={cfg.W} M={cfg.M} "
+              f"K={cfg.K} {cfg.cov_out} regime {plan.regime} cluster "
+              f"{plan.cluster} block {plan.block}: base {t[0]:.4f} / "
+              f"{t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms, bound "
+              f"{bms:.5f} ms ({by}), share base {bms / b:.1%} this "
+              f"{bms / h:.1%}, {b / h:.1f}x")
+        return b, h, bms
+
+    for label, cfg, cov, lens_d in scan_chop_inputs(torch, np, et,
+                                                    pileup_cuda, params):
+        for mode in ("host", "diff8"):
+            turns(label, dataclasses.replace(cfg, cov_out=mode), cov,
+                  lens_d)
+    tot = [0.0, 0.0, 0.0]
+    for cfg, lens, off, pk in buckets:
+        c = dataclasses.replace(cfg, cov_out="host")
+        for i, v in enumerate(turns("32k bucket", c,
+                                    pileup_cuda.pileup(off, pk, c), lens)):
+            tot[i] += v
+    print(f"ab scan_chop over the 32k main path's {len(buckets)} buckets, "
+          f"summed medians: base {tot[0]:.4f} ms, this {tot[1]:.4f} ms, "
+          f"bound {tot[2]:.4f} ms, share base {tot[2] / tot[0]:.1%} this "
+          f"{tot[2] / tot[1]:.1%}, {tot[0] / tot[1]:.1f}x")
 
 
 def real_bucket_phase(torch, et, pileup_cuda, pipeline, params, reads, paf):
@@ -1597,7 +1722,7 @@ def main(argv: list[str]) -> int:
 
     params = cli.parse_args(BENCH_ARGS + ["reads", "paf"])[0]
     if argv and argv[0] == "--ab":
-        base, build_base = load_base(argv[1])
+        base, base_sc, build_base = load_base(argv[1])
         so, log = build_base(force=True)
         print(f"base build -> {so}")
         for line in log.splitlines():
@@ -1605,7 +1730,7 @@ def main(argv: list[str]) -> int:
                 print(f"  {line.strip()}")
         with tempfile.TemporaryDirectory(prefix="raft_smoke_") as work:
             ab_phase(torch, np, et, pileup_cuda, pipeline, params, base,
-                     work, gen_dataset)
+                     base_sc, work, gen_dataset)
         return report(torch, name, None, {}, [], [])
     if argv:
         with tempfile.TemporaryDirectory(prefix="raft_smoke_") as work:

@@ -1,7 +1,8 @@
 """The port's CUDA kernel library: every ``csrc/*.cu`` compiled by ``nvcc``
-into one ``_build/libraft_kernels.so`` with a plain C interface, loaded
-with ctypes, for the wrappers ``ops/pileup_cuda.py`` (``raft_pileup``)
-and ``ops/scan_chop_cuda.py`` (``raft_scan_chop``).
+(one process per source, all started together) and linked into one
+``_build/libraft_kernels.so`` with a plain C interface, loaded with
+ctypes, for the wrappers ``ops/pileup_cuda.py`` (``raft_pileup``) and
+``ops/scan_chop_cuda.py`` (``raft_scan_chop``).
 
 The build runs at the first CUDA call, never at import, and again
 whenever a source is newer than the library.
@@ -26,14 +27,15 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libraft_kernels.so"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the CUDA toolkit's install prefix
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Each C entry point's arguments: device pointers, ints, the cudaStream_t.
 ENTRY_POINTS = {
     "raft_pileup": [_P] * 3 + [_I] * 12 + [_P],
-    "raft_scan_chop": [_P] * 5 + [_I] * 15 + [_P],
+    "raft_scan_chop": [_P] * 5 + [_I] * 24 + [_P],
 }
 
 # The kernels by the names their wrappers count launches under.
@@ -92,13 +94,31 @@ def build_kernels(build_dir: str = BUILD_DIR,
             "path")
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building the CUDA kernels ({names})"
-                           f" (rc {res.returncode}):\n{res.stderr}")
+    objs = [os.path.join(build_dir, f"{os.path.basename(src)}.{os.getpid()}"
+                         ".o") for src in srcs]  # nvcc goes by the suffix
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for src, obj in zip(srcs, objs)]
+    outs = [p.communicate() for p in procs]
+    log = "".join(out + err for out, err in outs)
+    try:
+        for src, p, (_, err) in zip(srcs, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed building the CUDA kernels ({names}) on "
+                    f"{os.path.basename(src)} (rc {p.returncode}):\n{err}")
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed linking the CUDA kernels "
+                               f"({names}) (rc {res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
-    return so, res.stdout + res.stderr
+    return so, log + res.stdout + res.stderr
 
 
 def get_lib():

@@ -212,31 +212,206 @@ def test_scan_chop_property(reso, rl, il, div, flank, ov_frac, mode, seed):
                   _jax_after_pileup(cov, lens, _jax_cfg(cfg)))
 
 
-SHAPES = [(4096, 512, 4), (1536, 1024, 4), (8, 1 << 20, 5244), (64, 4096, 2050),
-          (33, 7, 2), (1, 1, 2), (5, 100_001, 3), (2, 64, 5000)]
+SHAPES = [(4096, 512), (1536, 1024), (8, 1 << 20), (64, 4096), (33, 7), (1, 1),
+          (5, 100_001), (2, 64), (8, 2048), (1024, 8192), (64, 65536)]
 
 
-@pytest.mark.parametrize("B,W,M", SHAPES)
-def test_launch_plan(B, W, M):
-    """A block per row, whole warps, at most 1024 threads; the chunks
-    cover the row (block * chunk >= W) and no thread's chunk starts past
-    it but by less than a chunk; small rows get chunks of MIN_CHUNK
-    windows, and a row with many markers more threads."""
-    p = scan_chop_cuda.launch_plan(B, W, M)
-    assert p.grid == B
-    assert p.block % 32 == 0 and 32 <= p.block <= scan_chop_cuda.MAX_THREADS
-    assert p.block * p.chunk >= W
-    assert p.chunk == max(-(-W // p.block), 1)
-    if p.block < scan_chop_cuda.MAX_THREADS:
-        assert p.block >= min(M, scan_chop_cuda.MAX_THREADS)
-        assert p.chunk <= scan_chop_cuda.MIN_CHUNK
+def _plan_fits_rows(B, W, M, K, F):
+    """Where launch_plan must take regime 1, from its documented rule."""
+    sc = scan_chop_cuda
+    return (W <= sc.NARROW_W and M <= sc.ROWS_MAX_M
+            and sc.ROWS_WARPS * (2 * K + 2 * F + 5 + M) * 4 <= sc.ROWS_SMEM
+            and (W < sc.FEW_ROWS_W or B >= sc.ROWS_PER_SM * sc.H100_SMS))
 
 
-def test_launch_plan_main_shapes():
-    """The bench bucket (4096, 512) takes 128 threads of 4 windows; the
-    ultralong (8, 2^20) 1024 threads of 1024 windows."""
-    assert scan_chop_cuda.launch_plan(4096, 512, 4) == (4096, 128, 4)
-    assert scan_chop_cuda.launch_plan(8, 1 << 20, 5244) == (8, 1024, 1024)
+@pytest.mark.parametrize("label,fields", PARAM_SETS,
+                         ids=[p[0] for p in PARAM_SETS])
+@pytest.mark.parametrize("B,W", SHAPES)
+def test_launch_plan(B, W, label, fields):
+    """For the sweep's (M, K, F) at each shape: the regime the rule names;
+    whole warps and a cluster of at most 16 blocks that divides the grid;
+    tiles (and, in regime 2, the warps' segments and the blocks' marker
+    shares) that cover the row; shared memory within the card's 232,448
+    bytes; the global-memory branch exactly where K slots or a block's
+    survivors do not fit."""
+    sc = scan_chop_cuda
+    cfg = _cfg(B, W, fields, "host")
+    M, K, F = cfg.M, cfg.K, cfg.F
+    p = sc.launch_plan(B, W, M, K, F)
+    assert p.block % 32 == 0 and p.smem <= sc.SMEM_MAX
+    assert 1 <= p.cluster <= 16 and p.grid % p.cluster == 0
+    assert p.tile == 4 * sc.TILE and p.seg % sc.TILE == 0
+    assert p.vec == (W % 4 == 0)
+    assert (p.regime == 1) == _plan_fits_rows(B, W, M, K, F)
+    if p.regime == 1:
+        assert p.block == 32 * p.rows_per_block and p.cluster == 1
+        assert p.grid * p.rows_per_block >= B > (p.grid - 1) * p.rows_per_block
+        assert W <= p.seg < W + sc.TILE          # one warp walks the row
+        assert p.slice == 2 * K + 2 * F + 5 + M and p.stars_smem
+        assert p.smem == 4 * p.rows_per_block * p.slice
+        return
+    nw = p.block // 32
+    assert 1 <= nw <= sc.WIDE_WARPS and p.grid == B * p.cluster
+    segs = p.cluster * nw
+    assert segs * p.seg >= W > segs * (p.seg - sc.TILE)  # whole tiles, no spare
+    assert p.cluster * p.mc >= M > p.cluster * (p.mc - 1)
+    assert p.stars_smem == (p.mc <= sc.STARS_CAP)
+    kept = p.mc if p.stars_smem else 0
+    fits = 4 * (sc.WIDE_FIXED + 2 * K + kept) <= sc.WIDE_SMEM
+    assert (p.slot_cap == K) == fits and p.slot_cap <= K
+    assert p.smem == 4 * (sc.WIDE_FIXED + 2 * p.slot_cap + kept)
+    assert 4 * (sc.WIDE_FIXED + 2 * (p.slot_cap + 1) + kept) > sc.WIDE_SMEM \
+        or p.slot_cap == K
+
+
+@pytest.mark.parametrize("B,W,want", [
+    (4096, 512, dict(regime=1, grid=512, block=256, slice=23)),
+    (8, 2048, dict(regime=1, grid=1, block=256)),
+    (1024, 8192, dict(regime=1, grid=128, block=256)),
+    (256, 8192, dict(regime=2, cluster=2, block=128, seg=1024)),
+    (8, 1 << 20, dict(regime=2, grid=128, block=512, cluster=16, seg=4096,
+                      slot_cap=5217, mc=328, stars_smem=True)),
+    (64, 65536, dict(regime=2, grid=512, block=256, cluster=8, seg=1024)),
+    (8, 8192, dict(regime=2, cluster=8, block=32, seg=1024)),
+])
+def test_launch_plan_main_shapes(B, W, want):
+    """The bench flags' plans at the main path's shapes: a warp per row
+    for the 32k buckets (8 rows a block, the (4096, 512) bucket's packed
+    row and survivors in 23 ints of shared memory a warp); the
+    ultralong (8, 2^20) tier a cluster of 16 blocks of 512 threads per
+    row (128 blocks), 4,096 windows a warp, every slot and survivor on
+    chip; wide buckets of more rows fewer blocks per row, and 8,192
+    windows a warp per row only from four rows an SM."""
+    params = AlgoParams(est_cov=20, cov_mul=1.5, **BENCH)
+    cfg = et.derive_cfg(B, W, 64, params)
+    p = scan_chop_cuda.launch_plan(B, W, cfg.M, cfg.K, cfg.F)
+    assert {k: getattr(p, k) for k in want} == want
+
+
+def _wrap(x: int) -> int:
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _part_agg(high, lo, hi, reso, rl):
+    """The kernel's aggregate of the run boundaries that lie in windows
+    [lo, hi) of a row (boundary w between windows w-1 and w; the one at
+    the row's end belongs to its last part): (last run start or -1, the
+    one run end whose start lies before lo or -1, the qualifying runs
+    that start and end inside, their length sum, wrapping)."""
+    W = len(high)
+    last, open_end, n_q, len_sum = -1, -1, 0, 0
+    for w in range(lo, hi + (1 if hi == W else 0)):
+        prev = w >= 1 and high[w - 1]
+        cur = w < W and high[w]
+        if prev and not cur:
+            if last < 0:
+                open_end = w - 1
+            else:
+                span = _wrap((w - last) * reso)
+                if span >= rl:
+                    n_q, len_sum = n_q + 1, _wrap(len_sum + span)
+        if cur and not prev:
+            last = w
+    return last, open_end, n_q, len_sum
+
+
+def _combine(a, b, reso, rl):
+    """Part a, then part b right after it (csrc/scan_chop.cu ``combine``)."""
+    last = b[0] if b[0] >= 0 else a[0]
+    open_end, n_q, len_sum = a[1], a[2] + b[2], _wrap(a[3] + b[3])
+    if b[1] >= 0:
+        if a[0] >= 0:
+            span = _wrap((b[1] - a[0] + 1) * reso)
+            if span >= rl:
+                n_q, len_sum = n_q + 1, _wrap(len_sum + span)
+        else:
+            assert a[1] < 0  # after a's open end, a stays low
+            open_end = b[1]
+    return last, open_end, n_q, len_sum
+
+
+def _carried_scan(high, lens_b, cuts, per_block, cfg):
+    """repeat_scan of one row, part by part as the cluster regime runs it:
+    each part's (a warp's) aggregate; each block's fold of its
+    ``per_block`` parts from the identity; the fold of the blocks'
+    aggregates, which gives each block its carry-in, and from it each
+    part's; then a second walk of each part from its carry that writes
+    its qualifying runs into their slots."""
+    K, reso, rl, flank = cfg.K, cfg.reso, cfg.repeat_length, cfg.flank
+    ident = (-1, -1, 0, 0)
+    bounds = [0, *cuts, len(high)]
+    parts = list(zip(bounds[:-1], bounds[1:]))
+    aggs = [_part_agg(high, lo, hi, reso, rl) for lo, hi in parts]
+    blocks = [aggs[i:i + per_block] for i in range(0, len(aggs), per_block)]
+    blk_aggs = []
+    for blk in blocks:
+        t = ident
+        for a in blk:
+            t = _combine(t, a, reso, rl)
+        blk_aggs.append(t)
+    before, carries = ident, []
+    for blk, t in zip(blocks, blk_aggs):
+        inner = before
+        for a in blk:
+            carries.append(inner)
+            inner = _combine(inner, a, reso, rl)
+        before = _combine(before, t, reso, rl)
+        assert inner == before  # the two folds agree
+    assert before[1] == -1  # every run starts inside the row
+    rep_s, rep_e = np.ones(K, np.int32), np.zeros(K, np.int32)
+    W = len(high)
+    for (lo, hi), (start, _, rank, _) in zip(parts, carries):
+        for w in range(lo, hi + (1 if hi == W else 0)):
+            prev = w >= 1 and high[w - 1]
+            cur = w < W and high[w]
+            if prev and not cur:
+                span = _wrap((w - start) * reso)
+                if span >= rl:
+                    if rank < K:
+                        rep_s[rank] = max(_wrap(start * reso - flank), 0)
+                        rep_e[rank] = min(_wrap(w * reso + flank),
+                                          int(lens_b))
+                    rank += 1
+            if cur and not prev:
+                start = w
+    return rep_s, rep_e, before[2], before[3]
+
+
+@pytest.mark.parametrize("label,fields", PARAM_SETS,
+                         ids=[p[0] for p in PARAM_SETS])
+@pytest.mark.parametrize("seed", range(2))
+def test_carry_model_matches_repeat_scan(seed, label, fields):
+    """The cross-tile / cross-block carry of the kernel's cluster regime,
+    modelled in numpy, equals ``engine_jax.repeat_scan`` (slots, rep_n,
+    rep_len_sum) on rows of every kind cut into parts at random tile
+    boundaries and at random windows, so that runs span whole parts and
+    parts hold no boundary at all; the parts are grouped into blocks of
+    one to three."""
+    rng = np.random.default_rng(100 + seed)
+    B, W = 12, 96 + 37 * seed
+    cfg = _cfg(B, W, fields, "host")
+    cfg = dataclasses.replace(cfg, K=min(cfg.K, 4 + seed))  # rep_n > K too
+    cov, lens = _rows(rng, B, W, cfg)
+    cov[1] = cfg.high_cov  # high throughout
+    lens[1] = W * cfg.reso
+    rep_s, rep_e, rep_n, rep_len_sum = (
+        np.asarray(x) for x in ej.repeat_scan(jnp.asarray(cov),
+                                              jnp.asarray(lens),
+                                              _jax_cfg(cfg)))
+    n_win = -(-lens.astype(np.int64) // cfg.reso)
+    high = (cov >= cfg.high_cov) & (np.arange(W)[None, :] < n_win[:, None])
+    for b in range(B):
+        for tile in (1, 4, 16):
+            n = int(rng.integers(0, W // tile + 1))
+            cuts = sorted(set(int(c) * tile for c in
+                              rng.integers(1, max(2, -(-W // tile)), n))
+                          - {0, W})
+            cuts = [c for c in cuts if c < W]
+            got = _carried_scan(high[b], lens[b], cuts,
+                                int(rng.integers(1, 4)), cfg)
+            np.testing.assert_array_equal(got[0], rep_s[b], f"{b} {cuts}")
+            np.testing.assert_array_equal(got[1], rep_e[b], f"{b} {cuts}")
+            assert (got[2], got[3]) == (rep_n[b], rep_len_sum[b])
 
 
 def test_scan_chop_wrapper_rejects_bad_inputs():
