@@ -141,8 +141,10 @@ counts in their ``--stats-json``.
 
 Only ``raft_tpu_torch`` is imported; its native I/O builds with fixed
 flags, whatever the environment's ``CXX``, ``CXXFLAGS`` and ``LDFLAGS``.
-The environment's ``RAFT_AUTO_CHUNK_BYTES``, ``RAFT_COV_OUT`` and
-``RAFT_CHUNK_TRACE`` are dropped, so every run takes the defaults.
+The environment's ``RAFT_AUTO_CHUNK_BYTES``, ``RAFT_COV_OUT``,
+``RAFT_CHUNK_TRACE`` and ``RAFT_SPANS`` are dropped, so every run takes the
+defaults; from step 4 on, ``RAFT_SPANS=1`` records the runs' spans, whose
+seconds the main-path lines print.
 
 ``--multi-card`` runs steps 1-2 and then only what needs several cards,
 on the 32k dataset: the CLI with ``--devices N`` over all N cards,
@@ -193,7 +195,8 @@ SHARD_CHUNK = 8192
 HARNESS_ROUNDS = 3       # step 10a: raft_tpu_torch.bench's timed rounds
 SCALE_READS, SCALE_ROWS, SCALE_CHUNK = 20_000, 30, 8192  # step 10e
 # run-time overrides the run must not inherit
-RAFT_ENV = ("RAFT_AUTO_CHUNK_BYTES", "RAFT_COV_OUT", "RAFT_CHUNK_TRACE")
+RAFT_ENV = ("RAFT_AUTO_CHUNK_BYTES", "RAFT_COV_OUT", "RAFT_CHUNK_TRACE",
+            "RAFT_SPANS")
 # The H100 SXM's peaks at 700 W: HBM bytes/s (NVIDIA's data sheet), and
 # int32 adds/s for the pileup's adds. The data sheet's 67 TFLOP/s float32
 # is 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz; an SM has 64 int32
@@ -1742,7 +1745,7 @@ def main(argv: list[str]) -> int:
     kcases = kernel_phase(torch, np, et, pileup_cuda, params)
     sc_cases = scan_chop_phase(torch, np, et, pileup_cuda, params)
 
-    os.environ["RAFT_TIMERS"] = "1"
+    os.environ["RAFT_SPANS"] = "1"  # the runs' --stats-json carry spans
     with tempfile.TemporaryDirectory(prefix="raft_smoke_") as work:
         # 4a. small input: --device cuda against the oracle engine
         small = gen_dataset(os.path.join(work, "small"), n_reads=400,
@@ -1796,7 +1799,10 @@ def main(argv: list[str]) -> int:
                   f"{st['n_fragments']}, native I/O "
                   f"{'yes' if st['native_io'] else 'NO'}, stages "
                   + json.dumps({k: round(v, 3)
-                                for k, v in st["stage_seconds"].items()}))
+                                for k, v in st["stage_seconds"].items()})
+                  + ", spans " + json.dumps(
+                      {k: round(v, 4)
+                       for k, (v, _) in st["span_seconds"].items()}))
         print(f"launches in the cuda run: {counts} (= {len(shapes)} "
               f"buckets each); peak device memory "
               f"{peak / 2**20:.1f} MiB; outputs byte-equal cuda vs cpu")

@@ -18,6 +18,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <ctime>
 #include <condition_variable>
 #include <mutex>
 #include <regex>
@@ -2544,6 +2545,32 @@ inline int fmt_u64(char* d, uint64_t v) {
   return k;
 }
 
+// The emitters' optional stats array (the last argument of every
+// raftio_emit_* entry point; NULL = off, and then no clock is read):
+// nanoseconds of the CountWriter pre-pass, of the render (outside the
+// writes) and inside write/writev/pwrite/pwritev/bgzf_write, the number
+// of those calls, the shards, and the bytes written; each thread keeps
+// its own and they are added once it has joined.
+enum { kStCount = 0, kStRender, kStWrite, kStWriteCalls, kStShards,
+       kStBytes, kEmitStats };
+
+inline int64_t now_ns() {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return static_cast<int64_t>(ts.tv_sec) * 1000000000 + ts.tv_nsec;
+}
+
+// One write call, timed into ws = {ns, calls} when ws is set.
+template <class F>
+inline bool timed_write(int64_t* ws, F write_call) {
+  if (!ws) return write_call();
+  const int64_t t = now_ns();
+  const bool ok = write_call();
+  ws[0] += now_ns() - t;
+  ws[1]++;
+  return ok;
+}
+
 // Zero-copy emitter: rendered text (headers, numbers) accumulates in a
 // fixed buffer; bulk payload (fragment sequences) is REFERENCED, not
 // copied, and both stream to the file with writev. This halves+ memory
@@ -2552,10 +2579,11 @@ inline int fmt_u64(char* d, uint64_t v) {
 // copies every sequence byte twice more, chop.hpp:318).
 class BufWriter {
  public:
-  explicit BufWriter(const char* path, bool append = false)
+  explicit BufWriter(const char* path, bool append = false,
+                     int64_t* ws = nullptr)
       : fd_(open(path, O_WRONLY | O_CREAT | (append ? O_APPEND : O_TRUNC),
                  0644)),
-        buf_(1 << 22), n_(0), seg_(0), failed_(false) {
+        buf_(1 << 22), n_(0), seg_(0), failed_(false), bytes_(0), ws_(ws) {
     iov_.reserve(1024);
   }
   ~BufWriter() {
@@ -2567,7 +2595,9 @@ class BufWriter {
     if (n_ + n > buf_.size()) {
       flush();
       if (n > buf_.size()) {  // oversized copy: write straight through
-        if (!write_full(fd_, s, n)) failed_ = true;
+        if (!timed_write(ws_, [&] { return write_full(fd_, s, n); }))
+          failed_ = true;
+        bytes_ += static_cast<int64_t>(n);
         return;
       }
     }
@@ -2597,13 +2627,18 @@ class BufWriter {
   void flush() {
     close_seg();
     if (!iov_.empty()) {
-      if (!writev_full(fd_, iov_.data(), static_cast<int>(iov_.size())))
+      for (const auto& v : iov_) bytes_ += static_cast<int64_t>(v.iov_len);
+      if (!timed_write(ws_, [&] {
+            return writev_full(fd_, iov_.data(),
+                               static_cast<int>(iov_.size()));
+          }))
         failed_ = true;
       iov_.clear();
     }
     n_ = 0;
     seg_ = 0;
   }
+  int64_t bytes() const { return bytes_; }  // handed to write so far
 
  private:
   inline void close_seg() {
@@ -2617,6 +2652,8 @@ class BufWriter {
   size_t n_, seg_;
   std::vector<struct iovec> iov_;
   bool failed_;
+  int64_t bytes_;
+  int64_t* ws_;
 };
 
 // Growable in-memory writer with BufWriter's interface: the unit of the
@@ -2698,8 +2735,9 @@ class CountWriter {
 // concurrently.
 class PWriter {
  public:
-  PWriter(int fd, int64_t off)
-      : fd_(fd), off_(off), buf_(1 << 22), n_(0), seg_(0), failed_(false) {
+  PWriter(int fd, int64_t off, int64_t* ws = nullptr)
+      : fd_(fd), off_(off), buf_(1 << 22), n_(0), seg_(0), failed_(false),
+        ws_(ws) {
     iov_.reserve(1024);
   }
   ~PWriter() { flush(); }
@@ -2709,7 +2747,9 @@ class PWriter {
     if (n_ + n > buf_.size()) {
       flush();
       if (n > buf_.size()) {
-        if (pwrite_full(fd_, s, n, off_) < 0) failed_ = true;
+        if (!timed_write(ws_,
+                         [&] { return pwrite_full(fd_, s, n, off_) >= 0; }))
+          failed_ = true;
         off_ += static_cast<int64_t>(n);
         return;
       }
@@ -2740,8 +2780,10 @@ class PWriter {
     if (!iov_.empty()) {
       int64_t bytes = 0;
       for (const auto& v : iov_) bytes += static_cast<int64_t>(v.iov_len);
-      if (!pwritev_full(fd_, iov_.data(), static_cast<int>(iov_.size()),
-                        off_))
+      if (!timed_write(ws_, [&] {
+            return pwritev_full(fd_, iov_.data(),
+                                static_cast<int>(iov_.size()), off_);
+          }))
         failed_ = true;
       off_ += bytes;
       iov_.clear();
@@ -2763,6 +2805,7 @@ class PWriter {
   size_t n_, seg_;
   std::vector<struct iovec> iov_;
   bool failed_;
+  int64_t* ws_;
 };
 
 // Per-file shard budget: the pipeline writes the output files
@@ -2798,47 +2841,79 @@ int emit_shards() {
 // shard with a PWriter straight into its disjoint pwritev range. With
 // gz != 0 the shards render into memory and are BGZF-compressed
 // (block-parallel) instead, ending with the BGZF EOF marker;
-// decompressed bytes are identical to the gz=0 output.
+// decompressed bytes are identical to the gz=0 output. With `st` set
+// (an int64_t[kEmitStats]) the counters above are added to it.
 template <class RenderFn>
 int emit_sharded(const char* path, int64_t n_items, int append,
-                 RenderFn render, int gz = 0) {
+                 RenderFn render, int gz, int64_t* st) {
   const int T = emit_shards();
   // an explicit RAFT_EMIT_SHARDS > 1 engages the parallel path even on
   // small item counts (tests exercise PWriter that way); the auto
   // default keeps small files on the serial fast path
   if (!gz && (T == 1 || (n_items < 4096 && emit_shards_explicit() == 0))) {
-    BufWriter w(path, append != 0);
+    int64_t ws[2] = {0, 0};
+    BufWriter w(path, append != 0, st ? ws : nullptr);
     if (!w.ok()) return -1;
+    const int64_t t0 = st ? now_ns() : 0;
     render(w, static_cast<int64_t>(0), n_items);
     // flush BEFORE deciding the return code: the destructor's flush is
     // too late to report ENOSPC/EIO, and a silently truncated output
     // with rc=0 is the worst possible failure (found by an actual
     // disk-full event during the r4 512k runs)
     w.flush();
+    if (st) {
+      st[kStRender] += now_ns() - t0 - ws[0];
+      st[kStWrite] += ws[0];
+      st[kStWriteCalls] += ws[1];
+      st[kStShards] += 1;
+      st[kStBytes] += w.bytes();
+    }
     return w.ok() ? 0 : -1;
   }
+  // per shard thread: render ns, and write {ns, calls}
+  std::vector<int64_t> tst(static_cast<size_t>(3 * T), 0);
   if (gz) {
     std::vector<MemWriter> shards(T);
     std::vector<std::thread> threads;
     for (int t = 0; t < T; t++) {
       int64_t lo = n_items * t / T;
       int64_t hi = n_items * (t + 1) / T;
-      threads.emplace_back(
-          [&shards, t, lo, hi, &render]() { render(shards[t], lo, hi); });
+      threads.emplace_back([&shards, &tst, st, t, lo, hi, &render]() {
+        const int64_t t0 = st ? now_ns() : 0;
+        render(shards[t], lo, hi);
+        if (st) tst[3 * t] = now_ns() - t0;
+      });
     }
     for (auto& th : threads) th.join();
     int fd = open(path, O_WRONLY | O_CREAT | (append ? O_APPEND : O_TRUNC),
                   0644);
     if (fd < 0) return -1;
+    struct stat st0;
+    if (st && fstat(fd, &st0) != 0) st0.st_size = 0;
+    int64_t ws[2] = {0, 0};
+    int64_t* wsp = st ? ws : nullptr;
     const int ZT = n_parse_threads();
     for (auto& s : shards)
-      if (s.size() && !bgzf_write(fd, s.data(), s.size(), ZT)) {
+      if (s.size() && !timed_write(wsp, [&] {
+            return bgzf_write(fd, s.data(), s.size(), ZT);
+          })) {
         close(fd);
         return -1;
       }
-    if (!write_full(fd, reinterpret_cast<const char*>(kBgzfEof), 28)) {
+    if (!timed_write(wsp, [&] {
+          return write_full(fd, reinterpret_cast<const char*>(kBgzfEof),
+                            28);
+        })) {
       close(fd);
       return -1;
+    }
+    if (st) {
+      struct stat st1;
+      if (fstat(fd, &st1) == 0) st[kStBytes] += st1.st_size - st0.st_size;
+      for (int t = 0; t < T; t++) st[kStRender] += tst[3 * t];
+      st[kStWrite] += ws[0];
+      st[kStWriteCalls] += ws[1];
+      st[kStShards] += T;
     }
     close(fd);
     return 0;
@@ -2850,13 +2925,17 @@ int emit_sharded(const char* path, int64_t n_items, int append,
     for (int t = 0; t < T; t++) {
       int64_t lo = n_items * t / T;
       int64_t hi = n_items * (t + 1) / T;
-      threads.emplace_back([&sizes, t, lo, hi, &render]() {
+      threads.emplace_back([&sizes, &tst, st, t, lo, hi, &render]() {
+        const int64_t t0 = st ? now_ns() : 0;
         CountWriter w;
         render(w, lo, hi);
         sizes[t] = w.size();
+        if (st) tst[3 * t] = now_ns() - t0;
       });
     }
     for (auto& th : threads) th.join();
+    if (st)
+      for (int t = 0; t < T; t++) st[kStCount] += tst[3 * t];
   }
   // NO O_APPEND: on Linux pwrite ignores the offset on O_APPEND fds;
   // append mode instead bases the ranges at the current file size
@@ -2884,13 +2963,25 @@ int emit_sharded(const char* path, int64_t n_items, int append,
       int64_t lo = n_items * t / T;
       int64_t hi = n_items * (t + 1) / T;
       threads.emplace_back([&, t, lo, hi]() {
-        PWriter w(fd, starts[t]);
+        int64_t* ws = st ? &tst[3 * t + 1] : nullptr;
+        const int64_t t0 = st ? now_ns() : 0;
+        PWriter w(fd, starts[t], ws);
         render(w, lo, hi);
         w.flush();
+        if (st) tst[3 * t] = now_ns() - t0 - ws[0];
         if (!w.ok() || w.offset() != starts[t + 1]) fail[t] = 1;
       });
     }
     for (auto& th : threads) th.join();
+  }
+  if (st) {
+    for (int t = 0; t < T; t++) {
+      st[kStRender] += tst[3 * t];
+      st[kStWrite] += tst[3 * t + 1];
+      st[kStWriteCalls] += tst[3 * t + 2];
+    }
+    st[kStShards] += T;
+    st[kStBytes] += starts[T] - base;
   }
   for (int t = 0; t < T; t++)
     if (fail[t]) {
@@ -3036,7 +3127,7 @@ int raftio_emit_frags_full(
     const int64_t* end_pos, const char* align_blob,
     const int64_t* align_off, const char* suffix_blob,
     const int64_t* suffix_off, int64_t first_read_num, int append,
-    int gz) {
+    int gz, int64_t* stats) {
   auto render = [&](auto& w, int64_t jlo, int64_t jhi) {
   for (int64_t j = jlo; j < jhi; j++) {
     int64_t i = frag_read[j];
@@ -3088,7 +3179,7 @@ int raftio_emit_frags_full(
     w.putc('\n');
   }
   };
-  return emit_sharded(path, n_frags, append, render, gz);
+  return emit_sharded(path, n_frags, append, render, gz, stats);
 }
 
 // coverage.txt: "read {i} " + "{w*reso},{cov} " per window + "\n"
@@ -3096,7 +3187,7 @@ int raftio_emit_frags_full(
 int raftio_emit_coverage(const char* path, const int32_t* cov,
                          const int64_t* cov_off, int64_t n_reads,
                          int32_t reso, int64_t first_read_index,
-                         int append, int gz) {
+                         int append, int gz, int64_t* stats) {
   auto render = [&](auto& w, int64_t ilo, int64_t ihi) {
   for (int64_t i = ilo; i < ihi; i++) {
     w.put("read ", 5);
@@ -3113,7 +3204,7 @@ int raftio_emit_coverage(const char* path, const int32_t* cov,
     w.putc('\n');
   }
   };
-  return emit_sharded(path, n_reads, append, render, gz);
+  return emit_sharded(path, n_reads, append, render, gz, stats);
 }
 
 // coverage.txt rendered straight from window-binned events (the fast
@@ -3126,7 +3217,7 @@ int raftio_emit_coverage_events(const char* path, const int32_t* w0,
                                 const int32_t* w1, const int64_t* ev_off,
                                 const int64_t* cov_off, int64_t n_reads,
                                 int32_t reso, int64_t first_read_index,
-                                int append, int gz) {
+                                int append, int gz, int64_t* stats) {
   auto render = [&](auto& w, int64_t ilo, int64_t ihi) {
   std::vector<int32_t> diff;
   // The "wstart," prefix for window k is k*reso — IDENTICAL for every
@@ -3179,7 +3270,7 @@ int raftio_emit_coverage_events(const char* path, const int32_t* w0,
     w.putc('\n');
   }
   };
-  return emit_sharded(path, n_reads, append, render, gz);
+  return emit_sharded(path, n_reads, append, render, gz, stats);
 }
 
 // long_repeats.bed (repeat.hpp:187-199, simulated mode): per interval
@@ -3192,7 +3283,7 @@ int raftio_emit_bed(const char* path, const int32_t* rep_s,
                     int64_t n_reads, const uint8_t* align_code,
                     const int64_t* start_pos, const int64_t* end_pos,
                     const char* chrom_blob, const int64_t* chrom_off,
-                    int append, int gz) {
+                    int append, int gz, int64_t* stats) {
   auto render = [&](auto& w, int64_t ilo, int64_t ihi) {
   for (int64_t i = ilo; i < ihi; i++) {
     uint8_t ac = align_code[i];
@@ -3215,14 +3306,14 @@ int raftio_emit_bed(const char* path, const int32_t* rep_s,
     }
   }
   };
-  return emit_sharded(path, n_reads, append, render, gz);
+  return emit_sharded(path, n_reads, append, render, gz, stats);
 }
 
 // long_repeats.txt: "read {i}, " + "{s},{e}    " per interval + "\n"
 int raftio_emit_repeats(const char* path, const int32_t* rep_s,
                         const int32_t* rep_e, const int64_t* rep_off,
                         int64_t n_reads, int64_t first_read_index,
-                        int append, int gz) {
+                        int append, int gz, int64_t* stats) {
   auto render = [&](auto& w, int64_t ilo, int64_t ihi) {
   for (int64_t i = ilo; i < ihi; i++) {
     w.put("read ", 5);
@@ -3237,7 +3328,7 @@ int raftio_emit_repeats(const char* path, const int32_t* rep_s,
     w.putc('\n');
   }
   };
-  return emit_sharded(path, n_reads, append, render, gz);
+  return emit_sharded(path, n_reads, append, render, gz, stats);
 }
 
 }  // extern "C"

@@ -10,7 +10,10 @@ before getopt sees them:
   device engine, the torch engine, so a ``raft_tpu`` command line runs
   unchanged.
 
-``--trace DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
+``--trace DIR`` writes a ``torch.profiler`` Chrome trace into DIR, the
+run's host spans (``profiling``) on its clock. ``--profile`` prints the
+stage seconds and, when the run recorded spans (``RAFT_SPANS=1``), their
+seconds by name and the counters; ``--stats-json`` holds both.
 ``--devices N`` shards the reads over ``parallel.mesh.make_devices(N,
 --device)``: the first N cards (fewer if fewer exist), or N shards on the
 CPU; 0 runs unsharded. ``--pallas``/``--no-pallas`` are accepted and
@@ -278,7 +281,8 @@ raft_tpu_torch extensions (not part of the reference surface):
                           instead of erroring
   --pure-python-io        disable the native C++ I/O library
   --no-compat-getopt      -v no longer falls through to -o
-  --profile               print per-stage timings
+  --profile               print per-stage timings (with RAFT_SPANS=1,
+                          also the spans by name and the counters)
   --stats-json FILE       write machine-readable run stats
   --gz-out                write outputs BGZF-compressed (.gz)
   --chunk-reads N         stream the reads in chunks of N (0 = whole-file;
@@ -291,7 +295,8 @@ raft_tpu_torch extensions (not part of the reference surface):
   --cov-out MODE          coverage return path: host (default; rebuilt
                           host-side, minimal D2H), diff8 (int8 diff
                           transfer), cov (full int32)
-  --trace DIR             write a torch.profiler Chrome trace into DIR
+  --trace DIR             write a torch.profiler Chrome trace, with the
+                          run's host spans, into DIR
   --devices N             shard the reads over the first N CUDA devices
                           (N shards with --device cpu; 0 = unsharded)
   --pallas / --no-pallas  accepted for raft_tpu command lines; both run
@@ -398,6 +403,10 @@ def main(argv: list[str] | None = None) -> int:
     if extras["profile"]:
         for k, v in stats.stage_seconds.items():
             print(f"PROFILE, {k}: {v:.4f} s")
+        for k, (v, n) in profiling.span_seconds(stats.spans).items():
+            print(f"PROFILE, span {k}: {v:.4f} s in {n}")
+        for k, v in sorted(stats.counters.items()):
+            print(f"PROFILE, counter {k}: {v}")
     if extras["stats_json"]:
         import json
         with open(extras["stats_json"], "w") as f:

@@ -34,13 +34,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import sys
-import time
 
 import numpy as np
 import torch
 
-from raft_tpu_torch import bucketing
+from raft_tpu_torch import bucketing, profiling
 from raft_tpu_torch.io.fasta import ReadStore
 from raft_tpu_torch.io.paf import OverlapTable
 from raft_tpu_torch.params import AlgoParams
@@ -410,9 +408,17 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     ``.coverage.txt`` renders from the window-binned events, which
     ``on_cov_events`` receives before any device work; in the other two
     it never fires, and the result carries ``cov_flat``.
-    ``timers_out`` receives the stage seconds that ``RAFT_TIMERS=1``
-    prints on stderr; ``grouped`` is an already-computed
-    ``events_grouped`` triple (``--auto-e`` reuses its pass).
+
+    The host stages are back-to-back spans ``engine.<stage>``, children of
+    the caller's open span (``profiling.Marks``): ``events`` (``sort``
+    where the events come ungrouped), ``cov_events``, then per bucket
+    ``bucket_prep``, ``h2d`` and ``step`` (attributes ``B``, ``W``,
+    ``E``), then ``integrate``; with the counters ``engine.events``,
+    ``engine.windows``, ``engine.buckets`` (device steps, one per bucket
+    and shard), ``engine.h2d_bytes`` and ``engine.d2h_bytes``.
+    ``timers_out`` receives those spans' seconds summed by stage;
+    ``grouped`` is an already-computed ``events_grouped`` triple
+    (``--auto-e`` reuses its pass).
     ``on_bucket(cfg, lens, ev_off, ev_pk)`` sees each bucket's device
     inputs after the H2D, before its ``device_step``; with ``devices``
     it sees each shard's, with the per-shard ``cfg``, so it fires once
@@ -423,14 +429,8 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
                          f"{', '.join(COV_OUT_MODES)}")
     ev_backed = mode == "host"
     device = torch.device(device)
-    timers: dict = {}
-    t0 = time.perf_counter()
-
-    def mark(name):
-        nonlocal t0
-        t = time.perf_counter()
-        timers[name] = timers.get(name, 0.0) + (t - t0)
-        t0 = t
+    marks = profiling.Marks("engine.", want=timers_out is not None)
+    mark = marks.mark
 
     n = store.n_reads
     lens = store.lens.astype(np.int32)
@@ -456,6 +456,9 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         ev_hi = ev_hi[order]
         mark("sort")
     prebinned = (ev_off_g, w0s, w1s) if grouped is not None else None
+    profiling.count("engine.events",
+                    len(w0s) if grouped is not None else len(ev_read))
+    profiling.count("engine.windows", int(nw_all.sum()))
 
     cov_off = _cumsum0(nw_all)
     if ev_backed:
@@ -502,9 +505,15 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         # cfg describes ONE shard
         cfg = derive_cfg(bk.B // n_shards, bk.W, bk.E // n_shards, params,
                          cov_out=mode)
-        mark("bucket_prep")
-        host = step(*host_inputs(bk, cfg), cfg=cfg, on_bucket=on_bucket,
-                    on_h2d=lambda: mark("h2d"))
+        shape = dict(B=cfg.B, W=cfg.W, E=cfg.E)
+        mark("bucket_prep", **shape)
+        args = host_inputs(bk, cfg)
+        host = step(*args, cfg=cfg, on_bucket=on_bucket,
+                    on_h2d=lambda: mark("h2d", **shape))
+        profiling.count("engine.buckets", n_shards)
+        profiling.count("engine.h2d_bytes", sum(a.nbytes for a in args))
+        profiling.count("engine.d2h_bytes", sum(
+            v.nbytes for v in host.values() if isinstance(v, np.ndarray)))
         out = unpack_out(host["packed"], cfg)
         if "diff8" in host:
             cov = np.cumsum(host["diff8"], axis=1, dtype=np.int32)
@@ -517,7 +526,7 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
             out["cov"] = cov
         elif "cov" in host:
             out["cov"] = host["cov"]
-        mark("step")
+        mark("step", **shape)
         outs.append((bk, out))
 
     # global offsets in read-id order
@@ -565,10 +574,7 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
 
     mark("integrate")
     if timers_out is not None:
-        timers_out.update(timers)
-    if os.environ.get("RAFT_TIMERS"):
-        print("compute_torch timers: " + ", ".join(
-            f"{k}={v:.3f}s" for k, v in timers.items()), file=sys.stderr)
+        timers_out.update(marks.seconds())
     return ComputeResult(
         n_reads=n,
         cov_flat=cov_flat, cov_off=cov_off,

@@ -2,7 +2,8 @@
 (``raft_tpu_torch/_native/raftio.cpp``).
 
 raft_tpu_torch's copy of ``raft_tpu/io/native.py``, unchanged apart from
-its import paths and its build: the library is ``libraftio_torch.so`` in
+its import paths, the emitters' spans and stats array (``_emit_native``)
+and its build: the library is ``libraftio_torch.so`` in
 the git-ignored ``raft_tpu_torch/_build/``, compiled by calling g++ with
 fixed flags (``BUILD_CMD``) and no ``CXX``/``CXXFLAGS``/``LDFLAGS`` from
 the environment. ``ctypes.CDLL`` loads it with ``RTLD_LOCAL``, so a
@@ -27,6 +28,8 @@ import threading
 
 import numpy as np
 
+from raft_tpu_torch import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "_native", "raftio.cpp")
 _BUILD = os.path.join(_PKG, "_build")
@@ -35,6 +38,12 @@ BUILD_CMD = ["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", _SRC, "-shared",
              "-lz"]
 _lock = threading.Lock()
 _lib = None
+# the slots of the emitters' stats array (raftio.cpp, kEmitStats)
+EMIT_STATS = ("count_ns", "render_ns", "write_ns", "write_calls", "shards",
+              "bytes")
+_NATIVE_SPAN = {f: f"emit.{f}.native" for f in ("fasta", "coverage",
+                                                "repeats", "bed")}
+_PREP_SPAN = {f: f"emit.{f}.prep" for f in _NATIVE_SPAN}
 _build_failed = False
 
 
@@ -188,25 +197,26 @@ def _configure(lib):
         C.c_void_p, C.c_void_p, C.c_void_p,   # align_code, start, end
         C.c_char_p, C.c_void_p,  # align blob + off
         C.c_char_p, C.c_void_p,  # suffix blob + off
-        C.c_int64, C.c_int, C.c_int]  # first_read_num, append, gz
+        C.c_int64, C.c_int, C.c_int,  # first_read_num, append, gz
+        C.c_void_p]              # stats (int64 [6] or NULL)
     lib.raftio_emit_coverage.restype = C.c_int
     lib.raftio_emit_coverage.argtypes = [
         C.c_char_p, i32p, i64p, C.c_int64, C.c_int32, C.c_int64, C.c_int,
-        C.c_int]
+        C.c_int, C.c_void_p]
     lib.raftio_emit_coverage_events.restype = C.c_int
     lib.raftio_emit_coverage_events.argtypes = [
         C.c_char_p, i32p, i32p, i64p, i64p, C.c_int64, C.c_int32,
-        C.c_int64, C.c_int, C.c_int]
+        C.c_int64, C.c_int, C.c_int, C.c_void_p]
     lib.raftio_emit_repeats.restype = C.c_int
     lib.raftio_emit_repeats.argtypes = [
         C.c_char_p, i32p, i32p, i64p, C.c_int64, C.c_int64, C.c_int,
-        C.c_int]
+        C.c_int, C.c_void_p]
     lib.raftio_emit_bed.restype = C.c_int
     lib.raftio_emit_bed.argtypes = [
         C.c_char_p, i32p, i32p, i64p, C.c_int64,
         C.c_void_p, C.c_void_p, C.c_void_p,   # align_code, start, end
         C.c_void_p, C.c_void_p,               # chrom blob + off
-        C.c_int, C.c_int]
+        C.c_int, C.c_int, C.c_void_p]
 
     lib.rf_name_off.restype = P(C.c_int64)
     lib.rf_name_off.argtypes = [C.c_void_p]
@@ -722,44 +732,60 @@ def _restore_on_fail(rc: int, path: str, base_size) -> bool:
     return rc == 0
 
 
+def _emit_native(file: str, fn, *args) -> int:
+    """One native emitter call for output ``file`` (``fasta``,
+    ``coverage``, ``repeats``, ``bed``). When the run records spans, it
+    runs inside the span ``emit.<file>.native`` with a stats array, whose
+    slots (``EMIT_STATS``) become the counters ``emit.<file>.<slot>``;
+    otherwise the stats pointer is NULL and the emitter reads no clock."""
+    if profiling.recording() is None:
+        return fn(*args, None)
+    st = np.zeros(len(EMIT_STATS), dtype=np.int64)
+    with profiling.span(_NATIVE_SPAN[file]):
+        rc = fn(*args, st.ctypes.data)
+    for slot, v in zip(EMIT_STATS, st.tolist()):
+        profiling.count(f"emit.{file}.{slot}", v)
+    return rc
+
+
 def emit_frags_full(path: str, store, res, first_read_num: int = 1,
                     append: bool = False, gz: bool = False) -> bool:
     """Native fragment-FASTA writer with in-C++ header rendering."""
     lib = _get_lib()
     if lib is None:
         return False
-    n = store.n_reads
-    name_blob, name_off = _name_blob0(store)
-    seq_off = np.ascontiguousarray(store.seq_off, dtype=np.int64)
-    whole_u8 = np.ascontiguousarray(res.frag_whole, dtype=np.uint8)
+    with profiling.span(_PREP_SPAN["fasta"]):
+        name_blob, name_off = _name_blob0(store)
+        seq_off = np.ascontiguousarray(store.seq_off, dtype=np.int64)
+        whole_u8 = np.ascontiguousarray(res.frag_whole, dtype=np.uint8)
 
-    if store.real_reads:
-        align_code = start = end = align_off = suffix_off = None
-        align_blob = suffix_blob = b""
-        ac_ptr = sp_ptr = ep_ptr = ao_ptr = so_ptr = None
-    else:
-        sim = _sim_blobs(store)
-        align_code, align_blob, align_off, suffix_blob, suffix_off = sim
-        start = np.ascontiguousarray(store.start_pos, dtype=np.int64)
-        end = np.ascontiguousarray(store.end_pos, dtype=np.int64)
-        ac_ptr = align_code.ctypes.data
-        sp_ptr = start.ctypes.data
-        ep_ptr = end.ctypes.data
-        ao_ptr = align_off.ctypes.data
-        so_ptr = suffix_off.ctypes.data
+        if store.real_reads:
+            align_code = start = end = align_off = suffix_off = None
+            align_blob = suffix_blob = b""
+            ac_ptr = sp_ptr = ep_ptr = ao_ptr = so_ptr = None
+        else:
+            sim = _sim_blobs(store)
+            align_code, align_blob, align_off, suffix_blob, suffix_off = sim
+            start = np.ascontiguousarray(store.start_pos, dtype=np.int64)
+            end = np.ascontiguousarray(store.end_pos, dtype=np.int64)
+            ac_ptr = align_code.ctypes.data
+            sp_ptr = start.ctypes.data
+            ep_ptr = end.ctypes.data
+            ao_ptr = align_off.ctypes.data
+            so_ptr = suffix_off.ctypes.data
 
-    base_size = _append_base(path, append)
-    rc = lib.raftio_emit_frags_full(
-        path.encode(), _seq_ptr(lib, store), seq_off,
-        res.n_frags,
-        np.ascontiguousarray(res.frag_read, dtype=np.int32),
-        np.ascontiguousarray(res.frag_char_start, dtype=np.int64),
-        np.ascontiguousarray(res.frag_char_len, dtype=np.int64),
-        whole_u8, int(store.real_reads),
-        name_blob, name_off,
-        ac_ptr, sp_ptr, ep_ptr,
-        align_blob, ao_ptr, suffix_blob, so_ptr, first_read_num,
-        int(append), int(gz))
+        base_size = _append_base(path, append)
+        args = (path.encode(), _seq_ptr(lib, store), seq_off,
+                res.n_frags,
+                np.ascontiguousarray(res.frag_read, dtype=np.int32),
+                np.ascontiguousarray(res.frag_char_start, dtype=np.int64),
+                np.ascontiguousarray(res.frag_char_len, dtype=np.int64),
+                whole_u8, int(store.real_reads),
+                name_blob, name_off,
+                ac_ptr, sp_ptr, ep_ptr,
+                align_blob, ao_ptr, suffix_blob, so_ptr, first_read_num,
+                int(append), int(gz))
+    rc = _emit_native("fasta", lib.raftio_emit_frags_full, *args)
     return _restore_on_fail(rc, path, base_size)
 
 
@@ -805,27 +831,28 @@ def emit_bed(path: str, store, res, append: bool = False,
     lib = _get_lib()
     if lib is None:
         return False
-    ze = np.empty(0, dtype=np.int32)
-    base_size = _append_base(path, append)
-    if store.real_reads:
-        rc = lib.raftio_emit_bed(
-            path.encode(), ze, ze, np.zeros(1, dtype=np.int64), 0,
-            None, None, None, None, None, int(append), int(gz))
-        return _restore_on_fail(rc, path, base_size)
-    if not attach_sim_meta(store):
-        return False
-    m = store._sim_native
-    start = np.ascontiguousarray(store.start_pos, dtype=np.int64)
-    end = np.ascontiguousarray(store.end_pos, dtype=np.int64)
-    rc = lib.raftio_emit_bed(
-        path.encode(),
-        np.ascontiguousarray(res.rep_s, dtype=np.int32),
-        np.ascontiguousarray(res.rep_e, dtype=np.int32),
-        np.ascontiguousarray(res.rep_off, dtype=np.int64),
-        res.n_reads,
-        m["align_code"].ctypes.data, start.ctypes.data, end.ctypes.data,
-        C.cast(C.c_char_p(m["chrom_blob"]), C.c_void_p),
-        m["chrom_off"].ctypes.data, int(append), int(gz))
+    with profiling.span(_PREP_SPAN["bed"]):
+        base_size = _append_base(path, append)
+        if store.real_reads:
+            ze = np.empty(0, dtype=np.int32)
+            args = (path.encode(), ze, ze, np.zeros(1, dtype=np.int64), 0,
+                    None, None, None, None, None, int(append), int(gz))
+        elif not attach_sim_meta(store):
+            return False
+        else:
+            m = store._sim_native
+            start = np.ascontiguousarray(store.start_pos, dtype=np.int64)
+            end = np.ascontiguousarray(store.end_pos, dtype=np.int64)
+            args = (path.encode(),
+                    np.ascontiguousarray(res.rep_s, dtype=np.int32),
+                    np.ascontiguousarray(res.rep_e, dtype=np.int32),
+                    np.ascontiguousarray(res.rep_off, dtype=np.int64),
+                    res.n_reads,
+                    m["align_code"].ctypes.data, start.ctypes.data,
+                    end.ctypes.data,
+                    C.cast(C.c_char_p(m["chrom_blob"]), C.c_void_p),
+                    m["chrom_off"].ctypes.data, int(append), int(gz))
+    rc = _emit_native("bed", lib.raftio_emit_bed, *args)
     return _restore_on_fail(rc, path, base_size)
 
 
@@ -836,11 +863,13 @@ def emit_coverage(path: str, cov_flat: np.ndarray, cov_off: np.ndarray,
     lib = _get_lib()
     if lib is None:
         return False
-    base_size = _append_base(path, append)
-    rc = lib.raftio_emit_coverage(
-        path.encode(), np.ascontiguousarray(cov_flat, dtype=np.int32),
-        np.ascontiguousarray(cov_off, dtype=np.int64), n_reads, reso,
-        first_read_index, int(append), int(gz))
+    with profiling.span(_PREP_SPAN["coverage"]):
+        base_size = _append_base(path, append)
+        args = (path.encode(),
+                np.ascontiguousarray(cov_flat, dtype=np.int32),
+                np.ascontiguousarray(cov_off, dtype=np.int64), n_reads,
+                reso, first_read_index, int(append), int(gz))
+    rc = _emit_native("coverage", lib.raftio_emit_coverage, *args)
     return _restore_on_fail(rc, path, base_size)
 
 
@@ -854,13 +883,14 @@ def emit_coverage_events(path: str, w0: np.ndarray, w1: np.ndarray,
     lib = _get_lib()
     if lib is None:
         return False
-    base_size = _append_base(path, append)
-    rc = lib.raftio_emit_coverage_events(
-        path.encode(), np.ascontiguousarray(w0, dtype=np.int32),
-        np.ascontiguousarray(w1, dtype=np.int32),
-        np.ascontiguousarray(ev_off, dtype=np.int64),
-        np.ascontiguousarray(cov_off, dtype=np.int64), n_reads, reso,
-        first_read_index, int(append), int(gz))
+    with profiling.span(_PREP_SPAN["coverage"]):
+        base_size = _append_base(path, append)
+        args = (path.encode(), np.ascontiguousarray(w0, dtype=np.int32),
+                np.ascontiguousarray(w1, dtype=np.int32),
+                np.ascontiguousarray(ev_off, dtype=np.int64),
+                np.ascontiguousarray(cov_off, dtype=np.int64), n_reads,
+                reso, first_read_index, int(append), int(gz))
+    rc = _emit_native("coverage", lib.raftio_emit_coverage_events, *args)
     return _restore_on_fail(rc, path, base_size)
 
 
@@ -871,10 +901,11 @@ def emit_repeats(path: str, rep_s: np.ndarray, rep_e: np.ndarray,
     lib = _get_lib()
     if lib is None:
         return False
-    base_size = _append_base(path, append)
-    rc = lib.raftio_emit_repeats(
-        path.encode(), np.ascontiguousarray(rep_s, dtype=np.int32),
-        np.ascontiguousarray(rep_e, dtype=np.int32),
-        np.ascontiguousarray(rep_off, dtype=np.int64), n_reads,
-        first_read_index, int(append), int(gz))
+    with profiling.span(_PREP_SPAN["repeats"]):
+        base_size = _append_base(path, append)
+        args = (path.encode(), np.ascontiguousarray(rep_s, dtype=np.int32),
+                np.ascontiguousarray(rep_e, dtype=np.int32),
+                np.ascontiguousarray(rep_off, dtype=np.int64), n_reads,
+                first_read_index, int(append), int(gz))
+    rc = _emit_native("repeats", lib.raftio_emit_repeats, *args)
     return _restore_on_fail(rc, path, base_size)

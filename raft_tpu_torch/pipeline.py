@@ -12,13 +12,19 @@ schedules:
   append-mode emits, software-pipelined across chunks.
 
 Outputs are byte-identical between the two and to ``raft_tpu``. The
-framework-free helpers (run stats, stage timers, the auto-chunk gate, the
-event-table views, ``--auto-e`` folding, the ``-e`` advisory, input
-checks, the oracle engine) are copies of ``raft_tpu.pipeline``'s, and the
-native I/O and the emitters are the port's own copies
-(``raft_tpu_torch.io``, ``raft_tpu_torch.emit``);
-``raft_tpu_torch.io.native`` builds its library at first use. All device
-work runs on the calling thread; the load and emit pools are host-only.
+framework-free helpers (run stats, the auto-chunk gate, the event-table
+views, ``--auto-e`` folding, the ``-e`` advisory, input checks, the
+oracle engine) are copies of ``raft_tpu.pipeline``'s, and the native I/O
+and the emitters are the port's own copies (``raft_tpu_torch.io``,
+``raft_tpu_torch.emit``); ``raft_tpu_torch.io.native`` builds its library
+at first use. All device work runs on the calling thread; the load and
+emit pools are host-only.
+
+Every timing is a ``profiling`` span: the stages of ``stage_seconds``
+always, the rest when the run records (``RAFT_SPANS=1``, a
+``torch.profiler`` around the run, or a chunked run writing
+``RAFT_CHUNK_TRACE``); ``TorchRunStats.spans`` and ``counters`` hand them
+out.
 """
 
 from __future__ import annotations
@@ -28,13 +34,12 @@ import dataclasses
 import json
 import os
 import sys
-import time
 import types
 from collections import deque
 
 import numpy as np
 
-from raft_tpu_torch import emit
+from raft_tpu_torch import emit, profiling
 from raft_tpu_torch.engine_torch import compute_torch
 from raft_tpu_torch.io import native
 from raft_tpu_torch.io.fasta import (ReadStore, load_reads, parse_sim_align,
@@ -50,8 +55,8 @@ OUT_NAMES = (".reads.fasta", ".coverage.txt", ".long_repeats.txt",
 
 # ---------------------------------------------------------------------------
 # Copied from raft_tpu/pipeline.py unchanged (import paths apart): run
-# stats, stage timers, --auto-e folding, the -e advisory, input checks, the
-# oracle engine, the auto-chunk gate and the event-table views.
+# stats, --auto-e folding, the -e advisory, input checks, the oracle
+# engine, the auto-chunk gate and the event-table views.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -102,19 +107,6 @@ class RunStats:
     def peak_rss_mb(self) -> float:
         import resource
         return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
-
-
-class _Timer:
-    def __init__(self, stats: RunStats, name: str):
-        self.stats, self.name = stats, name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *a):
-        self.stats.stage_seconds[self.name] = (
-            self.stats.stage_seconds.get(self.name, 0.0)
-            + time.perf_counter() - self.t0)
 
 
 def _apply_auto_e(params: AlgoParams, info: dict) -> AlgoParams:
@@ -322,20 +314,29 @@ class TorchRunStats(RunStats):
     shape, one entry per pileup launch. ``launches`` is how far each
     CUDA kernel's count (``ops._lib.launches``) rose during the run: one
     launch of each per bucket on a card, none on the CPU (a second run
-    in the same process at the same time would add its own)."""
+    in the same process at the same time would add its own).
+
+    ``spans`` and ``counters`` are the run's ``profiling`` recording
+    (empty when it did not record); ``stage_ns`` holds the integer
+    nanoseconds behind ``stage_seconds``."""
     native_io: bool = False
     buckets: list = dataclasses.field(default_factory=list)
     schedule: str = "whole"
     n_chunks: int = 1
     devices: list = dataclasses.field(default_factory=list)
     launches: dict = dataclasses.field(default_factory=dict)
+    spans: list = dataclasses.field(default_factory=list, repr=False)
+    counters: dict = dataclasses.field(default_factory=dict)
+    stage_ns: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def to_json(self) -> dict:
         return {**super().to_json(), "native_io": self.native_io,
                 "buckets": [list(b) for b in self.buckets],
                 "schedule": self.schedule, "n_chunks": self.n_chunks,
                 "devices": self.devices,
-                "launches": self.launches}
+                "launches": self.launches,
+                "span_seconds": profiling.span_seconds(self.spans),
+                "counters": self.counters}
 
     def on_bucket(self, cfg, *_):
         """``compute_torch(on_bucket=...)`` hook: record the shape."""
@@ -371,11 +372,14 @@ def load_inputs(read_path: str, paf_path: str, stats: TorchRunStats,
     """Parse the reads and the PAF, timed as ``load_reads`` and
     ``load_paf``. The PAF tokenize/intern phase has no dependency on the
     FASTA parse, so it runs beside ``load_reads`` (both native calls
-    release the GIL)."""
+    release the GIL) as ``parse.preparse_paf``; ``load_paf`` waits for it
+    and resolves its names (``parse.resolve_paf``)."""
     pre_fut = None
     if use_native is not False:
         _pre_pool = cf.ThreadPoolExecutor(max_workers=1)
-        pre_fut = _pre_pool.submit(native.preparse_paf, paf_path)
+        pre_fut = _pre_pool.submit(
+            profiling.bind(native.preparse_paf, "parse.preparse_paf"),
+            paf_path)
         _pre_pool.shutdown(wait=False)
 
     def _drain_preparse():
@@ -393,24 +397,38 @@ def load_inputs(read_path: str, paf_path: str, stats: TorchRunStats,
             pass
 
     try:
-        with _Timer(stats, "load_reads"):
+        with profiling.stage(stats, "load_reads"):
             store = load_reads(read_path, use_native=use_native)
         if verbose:
             print(f"Real Reads {int(store.real_reads)} ")
-        with _Timer(stats, "load_paf"):
+        with profiling.stage(stats, "load_paf"):
             table = None
             if pre_fut is not None:
                 fut, pre_fut = pre_fut, None
                 pre = fut.result()
                 if pre is not None:
-                    table = native.resolve_paf(pre, store)
+                    with profiling.span("parse.resolve_paf"):
+                        table = native.resolve_paf(pre, store)
             if table is None:
                 table = load_paf(paf_path, store, use_native=use_native)
     finally:
         _drain_preparse()
     stats.native_io = (use_native is not False
                        and native._get_lib() is not None)
+    _count_parse(read_path, paf_path, store.n_reads, table.n_rows)
     return store, table
+
+
+def _count_parse(read_path: str, paf_path: str, n_reads: int,
+                 n_rows: int) -> None:
+    """The parse layer's counters: input bytes (as stored, compressed or
+    not), reads and PAF rows."""
+    if profiling.recording() is None:
+        return
+    profiling.count("parse.fasta_bytes", os.path.getsize(read_path))
+    profiling.count("parse.paf_bytes", os.path.getsize(paf_path))
+    profiling.count("parse.reads", n_reads)
+    profiling.count("parse.paf_rows", n_rows)
 
 
 def _report(stats: TorchRunStats, params: AlgoParams, auto_e: bool) -> None:
@@ -467,26 +485,47 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
             print(f"INFO, large input: auto-streaming in chunks of "
                   f"{chunk_reads} reads (--chunk-reads 0 forces "
                   f"whole-file)", file=sys.stderr)
-    if chunk_reads:
-        if engine != "torch":
-            raise ValueError("the chunked schedule runs the torch engine; "
-                             "run --engine oracle whole-file "
-                             "(--chunk-reads 0)")
-        st = _run_pipeline_chunked(read_path, paf_path, params, chunk_reads,
-                                   strict=strict, verbose=verbose,
-                                   spill_paf=spill_paf, gz_out=gz_out,
-                                   cov_out=cov_out, auto_e=auto_e,
-                                   device=device, on_bucket=on_bucket,
-                                   devices=devices)
-        if st is not None:
-            st.launches = _lib.launch_counts(launches0)
-            return st
-        if verbose:
-            # stderr: stdout stays line-identical to the reference, and
-            # the auto-chunk gate reaches this without the user asking
-            print("INFO, streaming mode unavailable for this input; "
-                  "running whole-file", file=sys.stderr)
+    if chunk_reads and engine != "torch":
+        raise ValueError("the chunked schedule runs the torch engine; "
+                         "run --engine oracle whole-file "
+                         "(--chunk-reads 0)")
+    # the chunk trace is written from the spans, so asking for it records
+    with profiling.run(force=bool(chunk_reads and
+                                  os.environ.get("RAFT_CHUNK_TRACE"))) as rec:
+        st = None
+        if chunk_reads:
+            st = _run_pipeline_chunked(
+                read_path, paf_path, params, chunk_reads, strict=strict,
+                verbose=verbose, spill_paf=spill_paf, gz_out=gz_out,
+                cov_out=cov_out, auto_e=auto_e, device=device,
+                on_bucket=on_bucket, devices=devices)
+            if st is None and verbose:
+                # stderr: stdout stays line-identical to the reference,
+                # and the auto-chunk gate reaches this without the user
+                # asking
+                print("INFO, streaming mode unavailable for this input; "
+                      "running whole-file", file=sys.stderr)
+        if st is None:
+            st = _run_pipeline_whole(
+                read_path, paf_path, params, engine=engine, strict=strict,
+                verbose=verbose, use_native=use_native, gz_out=gz_out,
+                auto_e=auto_e, device=device, cov_out=cov_out,
+                on_bucket=on_bucket, devices=devices)
+    st.launches = _lib.launch_counts(launches0)
+    if rec is not None:
+        st.spans, st.counters = rec.spans, dict(rec.counters)
+    return st
 
+
+def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
+                        engine: str, strict: bool, verbose: bool,
+                        use_native: bool | None, gz_out: bool, auto_e: bool,
+                        device: str, cov_out: str | None, on_bucket,
+                        devices) -> TorchRunStats:
+    """Whole-file schedule: parse, one ``compute``, then the four writers
+    side by side, each a span ``emit.<file>`` on its pool thread (the
+    coverage writer's may start inside ``compute``), under the ``emit``
+    stage, which is the main thread's wait on them."""
     (params.replace(est_cov=1) if auto_e else params).validate()
     _validate_inputs(read_path, paf_path)
     stats = TorchRunStats()
@@ -501,7 +540,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     grouped = None
     if auto_e:
         from raft_tpu_torch import auto_e as _auto_e
-        with _Timer(stats, "auto_e"):
+        with profiling.stage(stats, "auto_e"):
             info, grouped = _auto_e.estimate_for_table(
                 table, store.lens.astype(np.int64), store.n_reads,
                 params.reso, params.cov_mul, strict=strict)
@@ -518,13 +557,13 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     cov_pool = cf.ThreadPoolExecutor(max_workers=1)
     cov_fut: list = []
 
-    def _on_cov(early_res):
-        cov_fut.append(cov_pool.submit(
-            emit.write_coverage, prefix + ".coverage.txt" + sfx,
-            params.reso, early_res, un, gz=gz_out))
+    def _write_coverage(pool, res):
+        return pool.submit(
+            profiling.bind(emit.write_coverage, "emit.coverage"),
+            prefix + ".coverage.txt" + sfx, params.reso, res, un, gz=gz_out)
 
     try:
-        with _Timer(stats, "compute"):
+        with profiling.stage(stats, "compute"):
             if engine == "oracle":
                 from raft_tpu_torch.result import from_per_read_lists
                 coverages, repeats, frags, cstats = compute_oracle(
@@ -535,7 +574,9 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
                 stats.devices = _device_names(device, devices)
                 res = compute_torch(
                     store, table, params, strict=strict, cov_out=cov_out,
-                    on_cov_events=_on_cov, grouped=grouped, device=device,
+                    on_cov_events=lambda early: cov_fut.append(
+                        _write_coverage(cov_pool, early)),
+                    grouped=grouped, device=device,
                     on_bucket=stats.bucket_hook(on_bucket), devices=devices)
 
         stats.n_reads = store.n_reads
@@ -548,22 +589,22 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
         if verbose:
             _report(stats, params, auto_e)
 
-        with _Timer(stats, "emit"):
+        with profiling.stage(stats, "emit"):
             # the four writers touch disjoint files and release the GIL in
             # the native emitters
             with cf.ThreadPoolExecutor(max_workers=4) as ex:
                 futs = [
-                    cov_fut[0] if cov_fut else
-                    ex.submit(emit.write_coverage,
-                              prefix + ".coverage.txt" + sfx,
-                              params.reso, res, un, gz=gz_out),
-                    ex.submit(emit.write_long_repeats,
+                    cov_fut[0] if cov_fut else _write_coverage(ex, res),
+                    ex.submit(profiling.bind(emit.write_long_repeats,
+                                             "emit.repeats"),
                               prefix + ".long_repeats.txt" + sfx, res, un,
                               gz=gz_out),
-                    ex.submit(emit.write_long_repeats_bed,
+                    ex.submit(profiling.bind(emit.write_long_repeats_bed,
+                                             "emit.bed"),
                               prefix + ".long_repeats.bed" + sfx, store,
                               res, un, gz=gz_out),
-                    ex.submit(emit.write_fragments_fasta,
+                    ex.submit(profiling.bind(emit.write_fragments_fasta,
+                                             "emit.fasta"),
                               prefix + ".reads.fasta" + sfx, store, params,
                               res, un, gz=gz_out),
                 ]
@@ -573,8 +614,73 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     finally:
         cov_pool.shutdown()
     stats.emit_bytes = _sum_output_bytes(prefix, sfx)
-    stats.launches = _lib.launch_counts(launches0)
+    with profiling.span("free"):
+        # the native stores and the result arrays go here, not unseen in
+        # the return (tens of ms at 0.6 Gbp)
+        del store, table, res, grouped
     return stats
+
+
+# chunk-trace keys of the writer spans
+_TRACE_EMIT = {"emit.fasta": "emit_fasta", "emit.repeats": "emit_lr",
+               "emit.bed": "emit_bed", "emit.coverage": "emit_cov"}
+
+
+def _chunk_trace(spans: list, chunks: list, stats: TorchRunStats,
+                 chunk_reads: int, spill: bool) -> list:
+    """The ``RAFT_CHUNK_TRACE`` records of a chunked run, from its spans:
+    per chunk its reads, seconds (rounded to ms) and ``[start, end]``
+    offsets from the start of the ``chunks`` span, then a summary."""
+    loop = next(s for s in reversed(spans) if s["name"] == "chunks")
+    T0 = loop["t0"]
+
+    def sec(s):
+        return round((s["t1"] - s["t0"]) / 1e9, 3)
+
+    def at(s):
+        return [round((s["t0"] - T0) / 1e9, 3), round((s["t1"] - T0) / 1e9, 3)]
+
+    kids: dict = {}
+    for s in spans:
+        kids.setdefault(s["parent"], []).append(s)
+    recs = [dict(ci=ci, lo=lo, hi=hi) for ci, (lo, hi) in enumerate(chunks)]
+    for s in spans:
+        name, a = s["name"], s["attrs"]
+        if name == "chunk":
+            r = recs[a["ci"]]
+            r["n_events"] = a["n_events"]
+            for c in kids.get(s["id"], []):
+                if c["name"] == "chunk.wait_load":
+                    r["wait_load_s"] = sec(c)
+                elif c["name"] == "chunk.drain":
+                    r["drain_s"] = sec(c)
+                elif c["name"] == "compute":
+                    r["compute_s"] = sec(c)
+                    r["compute_span"] = at(c)
+                    eng: dict = {}
+                    for e in kids.get(c["id"], []):
+                        if e["name"].startswith("engine."):
+                            key = e["name"][len("engine."):]
+                            eng[key] = eng.get(key, 0) + e["t1"] - e["t0"]
+                    r["engine"] = {k: round(v / 1e9, 3)
+                                   for k, v in eng.items()}
+        elif name == "chunk.load":
+            r = recs[a["ci"]]
+            r["load_span"] = at(s)
+            for c in kids.get(s["id"], []):
+                if c["name"] == "chunk.load.read":
+                    r["load_read_s"] = sec(c)
+                elif c["name"] == "chunk.load.events":
+                    r["load_events_s"] = sec(c)
+        elif name in _TRACE_EMIT and "ci" in a:
+            r = recs[a["ci"]]
+            r[_TRACE_EMIT[name] + "_s"] = sec(s)
+            r[_TRACE_EMIT[name] + "_span"] = at(s)
+    return recs + [{"total_wall_s": sec(loop),
+                    "stage_seconds": {k: round(v, 3) for k, v in
+                                      stats.stage_seconds.items()},
+                    "chunk_reads": chunk_reads, "n_chunks": len(chunks),
+                    "spill_paf": spill}]
 
 
 def _spill_auto(paf_path: str) -> bool:
@@ -609,8 +715,16 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
 
     ``RAFT_CHUNK_TRACE=<path>`` writes one JSON line per chunk (wait,
     load, compute, drain and emit seconds and spans, the engine's stage
-    timers) and a summary line; ``RAFT_CHUNK_PENDING`` (default 2) bounds
-    the chunks whose emits may still be running."""
+    seconds) and a summary line, all read from the run's spans
+    (``_chunk_trace``); ``RAFT_CHUNK_PENDING`` (default 2) bounds the
+    chunks whose emits may still be running.
+
+    Spans: the prelude's stages, then ``chunks`` around the loop; per
+    chunk ``chunk`` (``ci``, ``lo``, ``hi``, ``n_events``) holding
+    ``chunk.wait_load`` (the ``load_reads`` stage), ``chunk.drain`` and
+    ``compute``; ``chunk.load`` (``.read``, ``.events``) on the loader
+    thread and the writers ``emit.<file>`` (``ci``) on the emit pools;
+    then the ``emit`` stage, the wait on the last writers."""
     (params.replace(est_cov=1) if auto_e else params).validate()
     _validate_inputs(read_path, paf_path)
     stats = TorchRunStats(schedule="chunked", native_io=True,
@@ -626,7 +740,9 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     pre_fut = None
     if not spill_paf:
         _pre_pool = cf.ThreadPoolExecutor(max_workers=1)
-        pre_fut = _pre_pool.submit(native.preparse_paf, paf_path)
+        pre_fut = _pre_pool.submit(
+            profiling.bind(native.preparse_paf, "parse.preparse_paf"),
+            paf_path)
         _pre_pool.shutdown(wait=False)
 
     def _drain_preparse():
@@ -645,7 +761,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
             pass
 
     try:
-        with _Timer(stats, "index"):
+        with profiling.stage(stats, "index"):
             idx = native.index_reads(read_path)
         if idx is None or idx["n"] == 0:
             return None
@@ -656,7 +772,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
         bins = None
         table = None
         if spill_paf:
-            with _Timer(stats, "load_paf"):
+            with profiling.stage(stats, "load_paf"):
                 bins = native.bin_paf_events(paf_path, idx, n, chunk_reads)
             if bins is not None and strict and bins.n_unknown:
                 bins.close()
@@ -665,14 +781,15 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                     "input FASTA (undefined behavior in reference RAFT); "
                     "pass strict=False to drop them")
         if bins is None:
-            with _Timer(stats, "load_paf"):
+            with profiling.stage(stats, "load_paf"):
                 # the PAF interns against the index handle's name map
                 shim = types.SimpleNamespace(_native_handle=idx["handle"])
                 if pre_fut is not None:
                     fut, pre_fut = pre_fut, None
                     pre = fut.result()
                     if pre is not None:
-                        table = native.resolve_paf(pre, shim)
+                        with profiling.span("parse.resolve_paf"):
+                            table = native.resolve_paf(pre, shim)
                 if table is None:
                     table = native.load_paf(paf_path, shim)
                 if table is None:
@@ -682,6 +799,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
 
     symmetric = bins.symmetric if bins is not None else table.symmetric
     n_paf_rows = bins.n_rows if bins is not None else table.n_rows
+    _count_parse(read_path, paf_path, n, n_paf_rows)
     if verbose:
         print(f"INFO, Symmetric overlaps {int(symmetric)} ")
         print(f"INFO, length of alignments  {n_paf_rows}()")
@@ -696,7 +814,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
         # counting-sort pass over the index's read lengths; each chunk
         # takes a slice. Runs before the high_cov line because --auto-e
         # derives est_cov from these events.
-        with _Timer(stats, "group_events"):
+        with profiling.stage(stats, "group_events"):
             eg = getattr(table, "events_grouped", None)
             g = (eg(n, idx_lens, params.reso, strict=strict)
                  if eg is not None else None)
@@ -712,7 +830,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
 
     if auto_e:
         from raft_tpu_torch import auto_e as _auto_e
-        with _Timer(stats, "auto_e"):
+        with profiling.stage(stats, "auto_e"):
             if bins is not None:
                 info = _auto_e.estimate_for_bins(
                     bins, idx_lens, params.reso, params.cov_mul,
@@ -750,17 +868,17 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     max_pending = max(1, int(os.environ.get("RAFT_CHUNK_PENDING", "2")))
 
     trace_path = os.environ.get("RAFT_CHUNK_TRACE")
-    T0 = time.perf_counter()
 
-    def _span(t0, t1):
-        return [round(t0 - T0, 3), round(t1 - T0, 3)]
+    def _load_chunk(ci, lo, hi):
+        with profiling.span("chunk.load", ci=ci):
+            with profiling.span("chunk.load.read"):
+                store = native.load_reads_range(
+                    idx["data_path"], int(rec_off[lo]), int(rec_off[hi]),
+                    fastq=idx["fastq"])
+            with profiling.span("chunk.load.events"):
+                return store, _chunk_events(store, lo, hi)
 
-    def _load_chunk(lo, hi, rec=None):
-        t0 = time.perf_counter()
-        store = native.load_reads_range(
-            idx["data_path"], int(rec_off[lo]), int(rec_off[hi]),
-            fastq=idx["fastq"])
-        t1 = time.perf_counter()
+    def _chunk_events(store, lo, hi):
         store.real_reads = params.real_reads
         if not params.real_reads and not native.attach_sim_meta(store):
             # degenerate names: per-name python parse (exact contract)
@@ -773,128 +891,100 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
             store.chrom = [parse_sim_chr(nm) for nm in cn]
         if bins is not None:
             er, el, eh = bins.events_for_bin(lo // chunk_reads)
-            sub_table = _EventTable(er - lo, el, eh, symmetric)
-        elif g_off is not None:
+            return _EventTable(er - lo, el, eh, symmetric)
+        if g_off is not None:
             o = g_off[lo:hi + 1]
-            sub_table = _GroupedEventTable(o - o[0],
-                                           g_w0[int(o[0]):int(o[-1])],
-                                           g_w1[int(o[0]):int(o[-1])],
-                                           symmetric)
-        else:
-            a, b = np.searchsorted(ev_read, [lo, hi])
-            sub_table = _EventTable(ev_read[a:b] - lo, ev_lo[a:b],
-                                    ev_hi[a:b], symmetric)
-        if rec is not None:
-            t2 = time.perf_counter()
-            rec["load_span"] = _span(t0, t2)
-            rec["load_read_s"] = round(t1 - t0, 3)
-            rec["load_events_s"] = round(t2 - t1, 3)
-        return store, sub_table
+            return _GroupedEventTable(o - o[0],
+                                      g_w0[int(o[0]):int(o[-1])],
+                                      g_w1[int(o[0]):int(o[-1])],
+                                      symmetric)
+        a, b = np.searchsorted(ev_read, [lo, hi])
+        return _EventTable(ev_read[a:b] - lo, ev_lo[a:b], ev_hi[a:b],
+                           symmetric)
 
-    def _timed_emit(fn, rec, key, *a, **k):
-        t0 = time.perf_counter()
-        r = fn(*a, **k)
-        t1 = time.perf_counter()
-        rec[key] = round(t1 - t0, 3)
-        rec[key.replace("_s", "_span")] = _span(t0, t1)
-        return r
-
-    def _submit(pool, rec, key, fn, *a, **k):
-        if rec is None:
-            return pool.submit(fn, *a, **k)
-        return pool.submit(_timed_emit, fn, rec, key, *a, **k)
+    def _submit(pool, ci, name, fn, *a, **k):
+        return pool.submit(profiling.bind(fn, name, ci=ci), *a, **k)
 
     chunks = [(lo, min(lo + chunk_reads, n))
               for lo in range(0, n, chunk_reads)]
     stats.n_chunks = len(chunks)
-    recs = [dict(ci=ci, lo=lo, hi=hi) if trace_path else None
-            for ci, (lo, hi) in enumerate(chunks)]
 
     def _chunk_loop() -> int:
         # every emit future is drained here, so any I/O error surfaces
         # inside the teardown guard below
-        next_fut = load_pool.submit(_load_chunk, *chunks[0], rec=recs[0])
+        next_fut = load_pool.submit(profiling.bind(_load_chunk), 0,
+                                    *chunks[0])
         pending: deque = deque()
         frag_num = 1
         for ci, (lo, hi) in enumerate(chunks):
             app = ci > 0
-            rec = recs[ci]
-            t_wait = time.perf_counter()
-            with _Timer(stats, "load_reads"):
-                store, sub_table = next_fut.result()
-            if rec is not None:
-                rec["wait_load_s"] = round(time.perf_counter() - t_wait, 3)
-            if ci + 1 < len(chunks):
-                next_fut = load_pool.submit(_load_chunk, *chunks[ci + 1],
-                                            rec=recs[ci + 1])
-            t_drain = time.perf_counter()
-            while len(pending) > max_pending:
-                for f in pending.popleft():
-                    f.result()
-            if rec is not None:
-                rec["drain_s"] = round(time.perf_counter() - t_drain, 3)
+            with profiling.span("chunk", ci=ci, lo=lo, hi=hi) as chunk_span:
+                with profiling.stage(stats, "load_reads", "chunk.wait_load"):
+                    store, sub_table = next_fut.result()
+                if ci + 1 < len(chunks):
+                    next_fut = load_pool.submit(profiling.bind(_load_chunk),
+                                                ci + 1, *chunks[ci + 1])
+                with profiling.span("chunk.drain"):
+                    while len(pending) > max_pending:
+                        for f in pending.popleft():
+                            f.result()
 
-            # coverage emission overlaps this chunk's device work (its
-            # only input, the chunk's binned events, exists before it);
-            # the FIFO cov pool keeps the append order across chunks
-            cov_fut: list = []
+                # coverage emission overlaps this chunk's device work (its
+                # only input, the chunk's binned events, exists before it);
+                # the FIFO cov pool keeps the append order across chunks
+                cov_fut: list = []
 
-            def _on_cov(early_res, _lo=lo, _app=app, _rec=rec):
-                cov_fut.append(_submit(
-                    cov_pool, _rec, "emit_cov_s", emit.write_coverage,
-                    prefix + ".coverage.txt" + sfx, params.reso, early_res,
-                    first_read_index=_lo, append=_app, gz=gz_out))
+                def _write_coverage(res, _ci=ci, _lo=lo, _app=app):
+                    return _submit(
+                        cov_pool, _ci, "emit.coverage", emit.write_coverage,
+                        prefix + ".coverage.txt" + sfx, params.reso, res,
+                        first_read_index=_lo, append=_app, gz=gz_out)
 
-            eng_timers: dict = {}
-            t_comp = time.perf_counter()
-            with _Timer(stats, "compute"):
-                res = compute_torch(store, sub_table, params, strict=strict,
-                                    cov_out=cov_out, on_cov_events=_on_cov,
-                                    timers_out=eng_timers, device=device,
-                                    on_bucket=bucket_hook, devices=devices)
-            if rec is not None:
-                t1 = time.perf_counter()
-                rec["compute_s"] = round(t1 - t_comp, 3)
-                rec["compute_span"] = _span(t_comp, t1)
-                rec["engine"] = {k: round(v, 3)
-                                 for k, v in eng_timers.items()}
-                rec["n_events"] = int(sub_table.n_rows)
+                with profiling.stage(stats, "compute"):
+                    res = compute_torch(
+                        store, sub_table, params, strict=strict,
+                        cov_out=cov_out,
+                        on_cov_events=lambda early: cov_fut.append(
+                            _write_coverage(early)),
+                        device=device, on_bucket=bucket_hook,
+                        devices=devices)
+                chunk_span.set(n_events=int(sub_table.n_rows))
+                profiling.count("chunk.events", sub_table.n_rows)
 
-            frag_base = frag_num
-            frag_num += res.n_frags
-            stats.total_coverage += res.total_coverage
-            stats.total_windows += res.total_windows
-            stats.total_repeat_length += res.total_repeat_length
-            stats.total_read_length += res.total_read_length
+                frag_base = frag_num
+                frag_num += res.n_frags
+                stats.total_coverage += res.total_coverage
+                stats.total_windows += res.total_windows
+                stats.total_repeat_length += res.total_repeat_length
+                stats.total_read_length += res.total_read_length
 
-            if not cov_fut:  # diff8/cov modes: coverage renders from res
-                cov_fut.append(_submit(
-                    cov_pool, rec, "emit_cov_s", emit.write_coverage,
-                    prefix + ".coverage.txt" + sfx, params.reso, res,
-                    first_read_index=lo, append=app, gz=gz_out))
-            pending.append([
-                _submit(emit_pools[0], rec, "emit_fasta_s",
-                        emit.write_fragments_fasta,
-                        prefix + ".reads.fasta" + sfx, store, params, res,
-                        first_read_num=frag_base, append=app, gz=gz_out),
-                _submit(emit_pools[1], rec, "emit_lr_s",
-                        emit.write_long_repeats,
-                        prefix + ".long_repeats.txt" + sfx, res,
-                        first_read_index=lo, append=app, gz=gz_out),
-                _submit(emit_pools[2], rec, "emit_bed_s",
-                        emit.write_long_repeats_bed,
-                        prefix + ".long_repeats.bed" + sfx, store, res,
-                        append=app, gz=gz_out),
-            ] + cov_fut)
+                if not cov_fut:  # diff8/cov modes: coverage renders from res
+                    cov_fut.append(_write_coverage(res))
+                pending.append([
+                    _submit(emit_pools[0], ci, "emit.fasta",
+                            emit.write_fragments_fasta,
+                            prefix + ".reads.fasta" + sfx, store, params,
+                            res, first_read_num=frag_base, append=app,
+                            gz=gz_out),
+                    _submit(emit_pools[1], ci, "emit.repeats",
+                            emit.write_long_repeats,
+                            prefix + ".long_repeats.txt" + sfx, res,
+                            first_read_index=lo, append=app, gz=gz_out),
+                    _submit(emit_pools[2], ci, "emit.bed",
+                            emit.write_long_repeats_bed,
+                            prefix + ".long_repeats.bed" + sfx, store, res,
+                            append=app, gz=gz_out),
+                ] + cov_fut)
 
-        with _Timer(stats, "emit"):
+        with profiling.stage(stats, "emit"):
             while pending:
                 for f in pending.popleft():
                     f.result()
         return frag_num
 
     try:
-        frag_num = _chunk_loop()
+        with profiling.span("chunks"):
+            frag_num = _chunk_loop()
     except BaseException:
         # mid-run failure (emit I/O, compute or load error): tear the
         # pools down without waiting on queued work, release the spill
@@ -911,16 +1001,12 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                   + " ".join(partial), file=sys.stderr)
         raise
 
-    if trace_path:
+    rec = profiling.recording()
+    if trace_path and rec is not None:
         with open(trace_path, "w") as tf:
-            for rec in recs:
-                tf.write(json.dumps(rec) + "\n")
-            tf.write(json.dumps(
-                {"total_wall_s": round(time.perf_counter() - T0, 3),
-                 "stage_seconds": {k: round(v, 3)
-                                   for k, v in stats.stage_seconds.items()},
-                 "chunk_reads": chunk_reads, "n_chunks": len(chunks),
-                 "spill_paf": bins is not None}) + "\n")
+            for line in _chunk_trace(rec.spans, chunks, stats, chunk_reads,
+                                     bins is not None):
+                tf.write(json.dumps(line) + "\n")
 
     stats.n_reads = n
     stats.n_paf_rows = n_paf_rows
@@ -929,8 +1015,10 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     stats.emit_bytes = _sum_output_bytes(prefix, sfx)
     for p in emit_pools + [cov_pool, load_pool]:
         p.shutdown()
-    if bins is not None:
-        bins.close()
+    with profiling.span("free"):
+        if bins is not None:
+            bins.close()
+        del idx, names, rec_off, table, g_off, g_w0, g_w1
     if verbose:
         _report(stats, params, auto_e)
     return stats

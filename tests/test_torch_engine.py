@@ -154,10 +154,11 @@ def test_bucket_area_cap(monkeypatch):
     _assert_same(res, compute_jax(*ref))
 
 
-def test_cov_events_callback_timers_and_grouped(monkeypatch, capsys):
+def test_cov_events_callback_timers_and_grouped(monkeypatch):
     """on_cov_events gets the final coverage before any device work;
-    timers_out and the RAFT_TIMERS line report the stages; a passed-in
-    grouped triple is used as is."""
+    timers_out and the engine's spans report the stages, timers_out the
+    spans' sums; a passed-in grouped triple is used as is."""
+    from raft_tpu_torch import profiling
     rng = np.random.default_rng(17)
     lens = rng.integers(100, 30000, 64)
     port, ref = _case(lens, _random_rows(rng, lens, 600), est_cov=4,
@@ -168,12 +169,18 @@ def test_cov_events_callback_timers_and_grouped(monkeypatch, capsys):
     early = []
     timers = {}
     grouped = table.events_grouped(store.n_reads, store.lens, params.reso)
-    monkeypatch.setenv("RAFT_TIMERS", "1")
     monkeypatch.setattr(type(table), "events_grouped", None)
-    res = compute_torch(store, table, params, on_cov_events=early.append,
-                        timers_out=timers, grouped=grouped, device="cpu")
-    assert "compute_torch timers:" in capsys.readouterr().err
-    assert {"events", "bucket_prep", "h2d", "step", "integrate"} <= set(timers)
+    with profiling.run(force=True) as rec:
+        res = compute_torch(store, table, params, on_cov_events=early.append,
+                            timers_out=timers, grouped=grouped, device="cpu")
+    stages = {"events", "bucket_prep", "h2d", "step", "integrate"}
+    assert stages <= set(timers)
+    sums: dict = {}
+    for s in rec.spans:
+        if s["name"].startswith("engine."):
+            k = s["name"][len("engine."):]
+            sums[k] = sums.get(k, 0) + s["t1"] - s["t0"]
+    assert timers == {k: v / 1e9 for k, v in sums.items()}
     assert len(early) == 1
     np.testing.assert_array_equal(early[0].ensure_cov(), res.ensure_cov())
     assert early[0].total_coverage == res.total_coverage

@@ -66,9 +66,22 @@ def _same_fields(a, b, fields, what):
         _same(getattr(a, f), getattr(b, f), f"{what}.{f}")
 
 
+def _outside_the_emitters(src: str, writers: str) -> str:
+    """A raftio.cpp without its output writers (from the comment
+    ``writers`` to the end of ``emit_sharded``) and its ``raftio_emit_*``
+    entry points (the file's tail), and without the port's one extra
+    include."""
+    a = src.index(writers)
+    b = src.index("}  // namespace", a)
+    c = src.index("// Fragment FASTA with in-C++ header rendering")
+    return src[:a].replace("#include <ctime>\n", "") + src[b:c]
+
+
 def test_native_library_is_the_ports_own():
     """The port loads its own library, built from its own source with
-    fixed flags, independent of raft_tpu's (both load in one process)."""
+    fixed flags, independent of raft_tpu's (both load in one process).
+    Its source is raft_tpu's apart from the emitters, which take an
+    optional stats array (NULL: no clock read)."""
     assert native._get_lib() is not None
     assert native._SO.startswith(os.path.join(ROOT, "raft_tpu_torch"))
     assert os.path.basename(native._SO) == "libraftio_torch.so"
@@ -77,9 +90,15 @@ def test_native_library_is_the_ports_own():
     assert not any(a.startswith("$") for a in native.BUILD_CMD)
     if jnative._get_lib() is not None:
         assert native._get_lib()._handle != jnative._get_lib()._handle
-    with open(native._SRC, "rb") as f, open(os.path.join(
-            ROOT, "raft_tpu", "_native", "raftio.cpp"), "rb") as g:
-        assert f.read() == g.read()
+    with open(native._SRC) as f, open(os.path.join(
+            ROOT, "raft_tpu", "_native", "raftio.cpp")) as g:
+        port, orig = f.read(), g.read()
+    assert (_outside_the_emitters(port, "// The emitters' optional stats")
+            == _outside_the_emitters(orig, "// Zero-copy emitter"))
+    for fn in ("frags_full", "coverage", "coverage_events", "bed",
+               "repeats"):
+        sig = port[port.index(f"int raftio_emit_{fn}("):]
+        assert "int gz, int64_t* stats) {" in sig[:sig.index("{") + 1]
 
 
 @pytest.mark.parametrize("use_native", [None, False], ids=["native", "python"])
