@@ -2579,11 +2579,15 @@ inline bool timed_write(int64_t* ws, F write_call) {
 // copies every sequence byte twice more, chop.hpp:318).
 class BufWriter {
  public:
+  // reserved: the file's extent was allocated ahead (raftio_reserve), so
+  // it is opened without O_TRUNC and cut to the bytes written by trim()
   explicit BufWriter(const char* path, bool append = false,
-                     int64_t* ws = nullptr)
-      : fd_(open(path, O_WRONLY | O_CREAT | (append ? O_APPEND : O_TRUNC),
+                     int64_t* ws = nullptr, bool reserved = false)
+      : fd_(open(path, O_WRONLY | O_CREAT |
+                           (append ? O_APPEND : reserved ? 0 : O_TRUNC),
                  0644)),
-        buf_(1 << 22), n_(0), seg_(0), failed_(false), bytes_(0), ws_(ws) {
+        buf_(1 << 22), n_(0), seg_(0), failed_(false), bytes_(0), ws_(ws),
+        reserved_(reserved) {
     iov_.reserve(1024);
   }
   ~BufWriter() {
@@ -2639,6 +2643,12 @@ class BufWriter {
     seg_ = 0;
   }
   int64_t bytes() const { return bytes_; }  // handed to write so far
+  // after the last flush: a reserved file keeps no byte past the output
+  // (none at all after a failed write), so no reserved NUL survives
+  void trim() {
+    if (reserved_ && fd_ >= 0 && ftruncate(fd_, failed_ ? 0 : bytes_) != 0)
+      failed_ = true;
+  }
 
  private:
   inline void close_seg() {
@@ -2654,6 +2664,7 @@ class BufWriter {
   bool failed_;
   int64_t bytes_;
   int64_t* ws_;
+  bool reserved_;
 };
 
 // Growable in-memory writer with BufWriter's interface: the unit of the
@@ -2842,17 +2853,20 @@ int emit_shards() {
 // gz != 0 the shards render into memory and are BGZF-compressed
 // (block-parallel) instead, ending with the BGZF EOF marker;
 // decompressed bytes are identical to the gz=0 output. With `st` set
-// (an int64_t[kEmitStats]) the counters above are added to it.
+// (an int64_t[kEmitStats]) the counters above are added to it. With
+// reserved != 0 (plain, not append) the file's extent was allocated ahead
+// by raftio_reserve: it is opened without O_TRUNC and cut to the exact
+// output size, so the writes only copy.
 template <class RenderFn>
 int emit_sharded(const char* path, int64_t n_items, int append,
-                 RenderFn render, int gz, int64_t* st) {
+                 RenderFn render, int gz, int64_t* st, int reserved = 0) {
   const int T = emit_shards();
   // an explicit RAFT_EMIT_SHARDS > 1 engages the parallel path even on
   // small item counts (tests exercise PWriter that way); the auto
   // default keeps small files on the serial fast path
   if (!gz && (T == 1 || (n_items < 4096 && emit_shards_explicit() == 0))) {
     int64_t ws[2] = {0, 0};
-    BufWriter w(path, append != 0, st ? ws : nullptr);
+    BufWriter w(path, append != 0, st ? ws : nullptr, reserved != 0);
     if (!w.ok()) return -1;
     const int64_t t0 = st ? now_ns() : 0;
     render(w, static_cast<int64_t>(0), n_items);
@@ -2861,6 +2875,7 @@ int emit_sharded(const char* path, int64_t n_items, int append,
     // with rc=0 is the worst possible failure (found by an actual
     // disk-full event during the r4 512k runs)
     w.flush();
+    w.trim();
     if (st) {
       st[kStRender] += now_ns() - t0 - ws[0];
       st[kStWrite] += ws[0];
@@ -2938,8 +2953,10 @@ int emit_sharded(const char* path, int64_t n_items, int append,
       for (int t = 0; t < T; t++) st[kStCount] += tst[3 * t];
   }
   // NO O_APPEND: on Linux pwrite ignores the offset on O_APPEND fds;
-  // append mode instead bases the ranges at the current file size
-  int fd = open(path, O_WRONLY | O_CREAT | (append ? 0 : O_TRUNC), 0644);
+  // append mode instead bases the ranges at the current file size. A
+  // reserved file keeps its extent: the ftruncate below sets its size.
+  int fd = open(path, O_WRONLY | O_CREAT | (append || reserved ? 0 : O_TRUNC),
+                0644);
   if (fd < 0) return -1;
   int64_t base = 0;
   if (append) {
@@ -3127,7 +3144,7 @@ int raftio_emit_frags_full(
     const int64_t* end_pos, const char* align_blob,
     const int64_t* align_off, const char* suffix_blob,
     const int64_t* suffix_off, int64_t first_read_num, int append,
-    int gz, int64_t* stats) {
+    int reserved, int gz, int64_t* stats) {
   auto render = [&](auto& w, int64_t jlo, int64_t jhi) {
   for (int64_t j = jlo; j < jhi; j++) {
     int64_t i = frag_read[j];
@@ -3179,7 +3196,59 @@ int raftio_emit_frags_full(
     w.putc('\n');
   }
   };
-  return emit_sharded(path, n_frags, append, render, gz, stats);
+  return emit_sharded(path, n_frags, append, render, gz, stats, reserved);
+}
+
+// Reserve the first nbytes of the plain output file at path ahead of its
+// writer (raftio_emit_frags_full with reserved = 1): open it, truncate it
+// and allocate the range with the fallocate(2) syscall, mode 0 (not
+// posix_fallocate, whose fallback writes a byte per block where the
+// filesystem lacks fallocate), in emit_shards() disjoint ranges on as many
+// threads: allocating a memfd's pages scales with threads where writing
+// into the file does not. O_NONBLOCK and the fstat keep a FIFO or a
+// device untouched. Returns 0, or -errno with nothing left reserved.
+int raftio_reserve(const char* path, int64_t nbytes) {
+  int fd = open(path, O_WRONLY | O_CREAT | O_NONBLOCK | O_CLOEXEC, 0644);
+  if (fd < 0) return -errno;
+  struct stat sb;
+  int err = 0;
+  if (fstat(fd, &sb) != 0)
+    err = errno;
+  else if (!S_ISREG(sb.st_mode))
+    err = ESPIPE;
+  else if (ftruncate(fd, 0) != 0)
+    err = errno;
+  if (err) {
+    close(fd);
+    return -err;
+  }
+  const int T = emit_shards();
+  std::vector<int> errs(static_cast<size_t>(T), 0);
+  {
+    std::vector<std::thread> threads;
+    for (int t = 0; t < T; t++) {
+      const off_t lo = static_cast<off_t>(nbytes * t / T);
+      const off_t hi = static_cast<off_t>(nbytes * (t + 1) / T);
+      threads.emplace_back([&errs, fd, t, lo, hi]() {
+        if (hi <= lo) return;
+        int rc;
+        do {
+          rc = fallocate(fd, 0, lo, hi - lo);
+        } while (rc != 0 && errno == EINTR);
+        if (rc != 0) errs[t] = errno;
+      });
+    }
+    for (auto& th : threads) th.join();
+  }
+  for (int e : errs)
+    if (e && !err) err = e;
+  if (err) {
+    // a partial allocation must not survive as the file's length
+    while (ftruncate(fd, 0) != 0 && errno == EINTR) {
+    }
+  }
+  close(fd);
+  return -err;
 }
 
 // coverage.txt: "read {i} " + "{w*reso},{cov} " per window + "\n"

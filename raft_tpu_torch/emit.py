@@ -1,7 +1,7 @@
 """Byte-exact output emission for the four RAFT output files.
 
 raft_tpu_torch's copy of ``raft_tpu/emit.py``, unchanged apart from
-its import paths.
+its import paths and the fragment FASTA's ``Reservation``.
 
 Formats (verified against the reference):
 
@@ -23,7 +23,11 @@ fallbacks keep identical bytes.
 
 from __future__ import annotations
 
+import errno
+import os
+import sys
 
+from raft_tpu_torch import profiling
 from raft_tpu_torch.io.fasta import ReadStore
 from raft_tpu_torch.result import ComputeResult
 from raft_tpu_torch.params import AlgoParams
@@ -139,15 +143,64 @@ def fragment_header(read_num: int, store: ReadStore, i: int,
     return None
 
 
+def _reserve(path: str, nbytes: int, verbose: bool) -> int:
+    from raft_tpu_torch.io import native
+    try:
+        return native.reserve(path, nbytes)
+    except OSError as e:
+        # a full disk shows now, while the run computes; the writer meets
+        # it again and fails as it would have
+        if verbose and e.errno in (errno.ENOSPC, errno.EDQUOT):
+            print(f"WARNING, cannot reserve {nbytes} bytes for {path}: "
+                  f"{e.strerror}", file=sys.stderr)
+        return 0
+
+
+class Reservation:
+    """A plain output file's extent, reserved on a pool thread (span
+    ``emit.reserve``, ``native.reserve``) while the run computes, so that
+    its writer's calls only copy. ``nbytes`` need only be close: the
+    writer cuts the file to the output's size, and writes past the
+    reserved range allocate as they would have. The writer takes it
+    (``claim``: the bytes reserved, 0 where nothing was) and from then on
+    leaves no reserved byte behind, written or failed; ``release``, in
+    the run's cleanup, truncates to 0 bytes a reservation no writer
+    took, so a run that fails before its writer leaves no file of NULs."""
+
+    def __init__(self, pool, path: str, nbytes: int, verbose: bool):
+        self.path = path
+        self.claimed = False
+        self._fut = pool.submit(profiling.bind(_reserve, "emit.reserve"),
+                                path, nbytes, verbose)
+
+    def claim(self) -> int:
+        self.claimed = True
+        return self._fut.result()
+
+    def release(self) -> None:
+        if not self.claimed and self._fut.result():
+            os.truncate(self.path, 0)
+
+
 def write_fragments_fasta(path: str, store: ReadStore, params: AlgoParams,
                           res: ComputeResult,
                           use_native: bool = True,
                           first_read_num: int = 1,
-                          append: bool = False, gz: bool = False) -> int:
-    """Emit the fragmented FASTA; returns the number of fragments."""
+                          append: bool = False, gz: bool = False,
+                          reservation: Reservation | None = None) -> int:
+    """Emit the fragmented FASTA; returns the number of fragments.
+    ``reservation`` (a plain whole-file output) is waited for first
+    (span ``emit.fasta.reserve_wait``, counter
+    ``emit.fasta.reserved_bytes``)."""
     from raft_tpu_torch.io import native
+    reserved = 0
+    if reservation is not None:
+        with profiling.span("emit.fasta.reserve_wait"):
+            reserved = reservation.claim()
+        profiling.count("emit.fasta.reserved_bytes", reserved)
     if use_native and native.emit_frags_full(path, store, res,
-                                             first_read_num, append, gz):
+                                             first_read_num, append, gz,
+                                             reserved=reserved > 0):
         return res.n_frags
 
     store.ensure_sim_lists()  # python header rendering needs the lists

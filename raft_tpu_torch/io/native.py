@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes as C
 import fcntl
 import os
+import stat
 import subprocess
 import threading
 
@@ -197,8 +198,11 @@ def _configure(lib):
         C.c_void_p, C.c_void_p, C.c_void_p,   # align_code, start, end
         C.c_char_p, C.c_void_p,  # align blob + off
         C.c_char_p, C.c_void_p,  # suffix blob + off
-        C.c_int64, C.c_int, C.c_int,  # first_read_num, append, gz
+        C.c_int64, C.c_int,      # first_read_num, append
+        C.c_int, C.c_int,        # reserved, gz
         C.c_void_p]              # stats (int64 [6] or NULL)
+    lib.raftio_reserve.restype = C.c_int
+    lib.raftio_reserve.argtypes = [C.c_char_p, C.c_int64]
     lib.raftio_emit_coverage.restype = C.c_int
     lib.raftio_emit_coverage.argtypes = [
         C.c_char_p, i32p, i64p, C.c_int64, C.c_int32, C.c_int64, C.c_int,
@@ -748,9 +752,35 @@ def _emit_native(file: str, fn, *args) -> int:
     return rc
 
 
+def reserve(path: str, nbytes: int) -> int:
+    """Reserve the first ``nbytes`` of the plain output file ``path``
+    ahead of its writer: truncate it and allocate the range with
+    ``fallocate(2)`` (``raftio_reserve``), so that the writer's calls find
+    its pages allocated (``emit_frags_full(reserved=True)``). Engages only
+    where ``path``, links followed, is absent or a regular file: a FIFO, a
+    device or a terminal is never opened. Returns the bytes reserved, 0
+    where it did not engage; raises ``OSError`` where the allocation
+    failed (``ENOSPC``, ``EOPNOTSUPP``, ...), nothing left reserved."""
+    lib = _get_lib()
+    if lib is None or nbytes <= 0:
+        return 0
+    try:
+        if not stat.S_ISREG(os.stat(path).st_mode):
+            return 0
+    except FileNotFoundError:
+        pass
+    rc = lib.raftio_reserve(path.encode(), nbytes)
+    if rc != 0:
+        raise OSError(-rc, os.strerror(-rc), path)
+    return nbytes
+
+
 def emit_frags_full(path: str, store, res, first_read_num: int = 1,
-                    append: bool = False, gz: bool = False) -> bool:
-    """Native fragment-FASTA writer with in-C++ header rendering."""
+                    append: bool = False, gz: bool = False,
+                    reserved: bool = False) -> bool:
+    """Native fragment-FASTA writer with in-C++ header rendering.
+    ``reserved``: ``reserve`` allocated the plain file's extent, so the
+    writer keeps it and cuts the file to the output's size."""
     lib = _get_lib()
     if lib is None:
         return False
@@ -784,7 +814,7 @@ def emit_frags_full(path: str, store, res, first_read_num: int = 1,
                 name_blob, name_off,
                 ac_ptr, sp_ptr, ep_ptr,
                 align_blob, ao_ptr, suffix_blob, so_ptr, first_read_num,
-                int(append), int(gz))
+                int(append), int(reserved), int(gz))
     rc = _emit_native("fasta", lib.raftio_emit_frags_full, *args)
     return _restore_on_fail(rc, path, base_size)
 

@@ -368,12 +368,14 @@ def _device_names(device, devices) -> list[str]:
 
 def load_inputs(read_path: str, paf_path: str, stats: TorchRunStats,
                 use_native: bool | None = None,
-                verbose: bool = False) -> tuple[ReadStore, OverlapTable]:
+                verbose: bool = False,
+                on_reads=None) -> tuple[ReadStore, OverlapTable]:
     """Parse the reads and the PAF, timed as ``load_reads`` and
     ``load_paf``. The PAF tokenize/intern phase has no dependency on the
     FASTA parse, so it runs beside ``load_reads`` (both native calls
     release the GIL) as ``parse.preparse_paf``; ``load_paf`` waits for it
-    and resolves its names (``parse.resolve_paf``)."""
+    and resolves its names (``parse.resolve_paf``). ``on_reads(store)``,
+    where given, sees the reads between the two."""
     pre_fut = None
     if use_native is not False:
         _pre_pool = cf.ThreadPoolExecutor(max_workers=1)
@@ -401,6 +403,8 @@ def load_inputs(read_path: str, paf_path: str, stats: TorchRunStats,
             store = load_reads(read_path, use_native=use_native)
         if verbose:
             print(f"Real Reads {int(store.real_reads)} ")
+        if on_reads is not None:
+            on_reads(store)
         with profiling.stage(stats, "load_paf"):
             table = None
             if pre_fut is not None:
@@ -525,37 +529,30 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
     """Whole-file schedule: parse, one ``compute``, then the four writers
     side by side, each a span ``emit.<file>`` on its pool thread (the
     coverage writer's may start inside ``compute``), under the ``emit``
-    stage, which is the main thread's wait on them."""
+    stage, which is the main thread's wait on them. A plain FASTA's extent
+    is reserved once the reads are loaded (``emit.Reservation``, span
+    ``emit.reserve``), beside ``load_paf`` and ``compute``: at least its
+    bases and a newline a read."""
     (params.replace(est_cov=1) if auto_e else params).validate()
     _validate_inputs(read_path, paf_path)
     stats = TorchRunStats()
-    store, table = load_inputs(read_path, paf_path, stats, use_native,
-                               verbose)
-    if verbose:
-        print(f"INFO, Symmetric overlaps {int(table.symmetric)} ")
-        print(f"INFO, length of alignments  {table.n_rows}()")
-
-    params = params.replace(real_reads=store.real_reads,
-                            symmetric_overlaps=table.symmetric)
-    grouped = None
-    if auto_e:
-        from raft_tpu_torch import auto_e as _auto_e
-        with profiling.stage(stats, "auto_e"):
-            info, grouped = _auto_e.estimate_for_table(
-                table, store.lens.astype(np.int64), store.n_reads,
-                params.reso, params.cov_mul, strict=strict)
-        params = _apply_auto_e(params, info)
-    if verbose:
-        print(f"high_cov {params.high_cov}")
-
     prefix = params.outputfilename
     un = use_native is not False
     sfx = ".gz" if gz_out else ""
-    # in cov_out="host" mode .coverage.txt depends only on the binned
-    # events: the engine hands them over before any device work and the
-    # emitter runs beside it; in diff8/cov mode it renders from the result
-    cov_pool = cf.ThreadPoolExecutor(max_workers=1)
+    # the side pool's two threads: the FASTA's reservation, and in
+    # cov_out="host" mode the coverage writer (.coverage.txt depends only
+    # on the binned events: the engine hands them over before any device
+    # work and the emitter runs beside it; in diff8/cov mode it renders
+    # from the result)
+    side_pool = cf.ThreadPoolExecutor(max_workers=2)
     cov_fut: list = []
+    reservation = None
+
+    def _reserve_fasta(store):
+        nonlocal reservation
+        reservation = emit.Reservation(
+            side_pool, prefix + ".reads.fasta",
+            int(store.lens.sum(dtype=np.int64)) + store.n_reads, verbose)
 
     def _write_coverage(pool, res):
         return pool.submit(
@@ -563,6 +560,26 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
             prefix + ".coverage.txt" + sfx, params.reso, res, un, gz=gz_out)
 
     try:
+        store, table = load_inputs(
+            read_path, paf_path, stats, use_native, verbose,
+            on_reads=_reserve_fasta if un and not gz_out else None)
+        if verbose:
+            print(f"INFO, Symmetric overlaps {int(table.symmetric)} ")
+            print(f"INFO, length of alignments  {table.n_rows}()")
+
+        params = params.replace(real_reads=store.real_reads,
+                                symmetric_overlaps=table.symmetric)
+        grouped = None
+        if auto_e:
+            from raft_tpu_torch import auto_e as _auto_e
+            with profiling.stage(stats, "auto_e"):
+                info, grouped = _auto_e.estimate_for_table(
+                    table, store.lens.astype(np.int64), store.n_reads,
+                    params.reso, params.cov_mul, strict=strict)
+            params = _apply_auto_e(params, info)
+        if verbose:
+            print(f"high_cov {params.high_cov}")
+
         with profiling.stage(stats, "compute"):
             if engine == "oracle":
                 from raft_tpu_torch.result import from_per_read_lists
@@ -575,7 +592,7 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
                 res = compute_torch(
                     store, table, params, strict=strict, cov_out=cov_out,
                     on_cov_events=lambda early: cov_fut.append(
-                        _write_coverage(cov_pool, early)),
+                        _write_coverage(side_pool, early)),
                     grouped=grouped, device=device,
                     on_bucket=stats.bucket_hook(on_bucket), devices=devices)
 
@@ -606,13 +623,15 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
                     ex.submit(profiling.bind(emit.write_fragments_fasta,
                                              "emit.fasta"),
                               prefix + ".reads.fasta" + sfx, store, params,
-                              res, un, gz=gz_out),
+                              res, un, gz=gz_out, reservation=reservation),
                 ]
                 for f in futs[:-1]:
                     f.result()
                 stats.n_fragments = futs[-1].result()
     finally:
-        cov_pool.shutdown()
+        side_pool.shutdown()
+        if reservation is not None:
+            reservation.release()
     stats.emit_bytes = _sum_output_bytes(prefix, sfx)
     with profiling.span("free"):
         # the native stores and the result arrays go here, not unseen in

@@ -13,6 +13,7 @@ import io
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -283,3 +284,124 @@ def test_source_scan_catches_every_import_form(line, caught):
     rejects top-level and function-level imports of raft_tpu and jax, and
     nothing of raft_tpu_torch."""
     assert bool(PORT_IMPORT.search(f"x = 1\n{line}\n")) is caught
+
+
+OUT_EXTS = (".reads.fasta", ".coverage.txt", ".long_repeats.txt",
+            ".long_repeats.bed")
+
+
+def _reserve_params(tmp, name, cls):
+    return cls(est_cov=10, cov_mul=1.3, repeat_length=2000,
+               interval_length=2000, read_length=4000, flanking_length=300,
+               overlap_length=200, outputfilename=f"{tmp}/{name}")
+
+
+@pytest.fixture(scope="module")
+def reserve_case(tmp_path_factory):
+    """A real-read fixture and raft_tpu's four outputs on it."""
+    from raft_tpu.params import AlgoParams as JAlgoParams
+    tmp = str(tmp_path_factory.mktemp("reserve"))
+    reads, paf_path = datagen.standard_case(seed=43, tmpdir=tmp, n_reads=41)
+    jpipeline.run_pipeline(reads, paf_path,
+                           _reserve_params(tmp, "ref", JAlgoParams),
+                           engine="jax", verbose=False)
+    ref = {}
+    for ext in OUT_EXTS:
+        with open(f"{tmp}/ref{ext}", "rb") as f:
+            ref[ext] = f.read()
+    return reads, paf_path, ref
+
+
+def _memfd_outputs(prefix):
+    """The four outputs as symlinks to fresh memfds, as the benchmark's
+    sinks make them; returns the fds."""
+    fds = {}
+    for ext in OUT_EXTS:
+        fds[ext] = os.memfd_create("out" + ext)
+        os.symlink(f"/proc/self/fd/{fds[ext]}", prefix + ext)
+    return fds
+
+
+RESERVE_CASES = ("overshoot", "undershoot", "fails", "memfd")
+
+
+@pytest.mark.parametrize("shards", ["1", "4"])
+@pytest.mark.parametrize("case", RESERVE_CASES)
+def test_reserved_fasta_outputs_equal(reserve_case, tmp_path, monkeypatch,
+                                      case, shards):
+    """The whole-file schedule reserves the plain FASTA's extent ahead of
+    its writer; the four outputs stay raft_tpu's, byte for byte, on the
+    serial and the sharded emitter, whether the reservation overshoots
+    the output (the file shrinks to its size), undershoots it (the
+    writes allocate the rest), fails (nothing reserved, counter 0) or
+    lands in a memfd behind a symlink."""
+    reads, paf_path, ref = reserve_case
+    monkeypatch.setenv("RAFT_EMIT_SHARDS", shards)
+    monkeypatch.setenv("RAFT_SPANS", "1")
+    if case == "overshoot":
+        real = native.reserve
+        monkeypatch.setattr(native, "reserve",
+                            lambda path, n: real(path, 4 * n + 4096))
+    if case == "fails":
+        monkeypatch.setattr(native._get_lib(), "raftio_reserve",
+                            lambda path, n: -28)  # ENOSPC
+    prefix = str(tmp_path / "out")
+    fds = _memfd_outputs(prefix) if case == "memfd" else {}
+    try:
+        st = pipeline.run_pipeline(
+            reads, paf_path,
+            _reserve_params(str(tmp_path), "out", pipeline.AlgoParams),
+            device="cpu", verbose=False)
+        got = {}
+        for ext in OUT_EXTS:
+            with open(prefix + ext, "rb") as f:
+                got[ext] = f.read()
+    finally:
+        for fd in fds.values():
+            os.close(fd)
+    for ext in OUT_EXTS:
+        assert got[ext] == ref[ext], ext
+    size = len(got[".reads.fasta"])
+    reserved = st.counters["emit.fasta.reserved_bytes"]
+    assert st.counters["emit.fasta.bytes"] == size
+    assert {"overshoot": reserved > size, "undershoot": 0 < reserved < size,
+            "fails": reserved == 0, "memfd": reserved > 0}[case], reserved
+
+
+def test_failure_before_the_writer_leaves_no_reserved_fasta(
+        reserve_case, tmp_path, monkeypatch):
+    """An exception in ``compute`` after the FASTA's extent was reserved
+    leaves the FASTA at 0 bytes, not a file of reserved NULs."""
+    reads, paf_path, _ = reserve_case
+    fasta = str(tmp_path / "out.reads.fasta")
+
+    def boom(*a, **k):
+        deadline = time.monotonic() + 60
+        while not (os.path.exists(fasta) and os.path.getsize(fasta)):
+            assert time.monotonic() < deadline, "nothing was reserved"
+            time.sleep(0.002)
+        raise RuntimeError("compute failed")
+
+    monkeypatch.setattr(pipeline, "compute_torch", boom)
+    with pytest.raises(RuntimeError, match="compute failed"):
+        pipeline.run_pipeline(
+            reads, paf_path,
+            _reserve_params(str(tmp_path), "out", pipeline.AlgoParams),
+            device="cpu", verbose=False)
+    assert os.path.getsize(fasta) == 0
+
+
+def test_reserve_failure_is_reported(reserve_case, tmp_path, monkeypatch,
+                                     capsys):
+    """A full disk met by the reservation is said on stderr while the run
+    computes; nothing is reserved and the outputs are still written."""
+    reads, paf_path, ref = reserve_case
+    monkeypatch.setattr(native._get_lib(), "raftio_reserve",
+                        lambda path, n: -28)  # ENOSPC
+    pipeline.run_pipeline(
+        reads, paf_path,
+        _reserve_params(str(tmp_path), "out", pipeline.AlgoParams),
+        device="cpu", verbose=True)
+    err = capsys.readouterr().err
+    assert "WARNING, cannot reserve" in err and "out.reads.fasta" in err
+    assert (tmp_path / "out.reads.fasta").read_bytes() == ref[".reads.fasta"]

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -31,10 +32,11 @@ FILES = {"emit.fasta": ".reads.fasta", "emit.coverage": ".coverage.txt",
          "emit.repeats": ".long_repeats.txt", "emit.bed": ".long_repeats.bed"}
 ENGINE = {"engine.events", "engine.cov_events", "engine.bucket_prep",
           "engine.h2d", "engine.step", "engine.integrate"}
+RESERVE = {"emit.reserve", "emit.fasta.reserve_wait"}
 NAMES = {
     "whole": {"run_pipeline", "load_reads", "load_paf", "parse.preparse_paf",
               "parse.resolve_paf", "compute", "emit", "free", *ENGINE,
-              *WRITERS,
+              *WRITERS, *RESERVE,
               *(w + ".prep" for w in WRITERS),
               *(w + ".native" for w in WRITERS)},
     "chunked": {"run_pipeline", "index", "load_paf", "parse.preparse_paf",
@@ -138,10 +140,15 @@ def test_documented_names(recorded, sched):
     st, _ = recorded(f"names_{sched}", **SCHEDULES[sched])
     names = {s["name"] for s in st.spans}
     assert NAMES[sched] <= names, NAMES[sched] - names
-    want = COUNTERS | ({"chunk.events"} if sched == "chunked" else set())
+    want = COUNTERS | ({"chunk.events"} if sched == "chunked" else
+                       {"emit.fasta.reserved_bytes"})
     assert want <= set(st.counters), want - set(st.counters)
     by_id = {s["id"]: s for s in st.spans}
     for s in st.spans:
+        if s["name"] == "emit.reserve":
+            assert s["thread"] != root_thread(st)
+        if s["name"] == "emit.fasta.reserve_wait":
+            assert by_id[s["parent"]]["name"] == "emit.fasta"
         if s["name"] in ("engine.bucket_prep", "engine.h2d", "engine.step"):
             assert set(s["attrs"]) == {"B", "W", "E"}
             assert by_id[s["parent"]]["name"] == "compute"
@@ -190,6 +197,20 @@ def test_counters_count_what_they_say(recorded, sched, case):
     assert st.counters["parse.paf_rows"] == st.n_paf_rows
     assert st.counters["parse.fasta_bytes"] == os.path.getsize(reads)
     assert st.counters["parse.paf_bytes"] == os.path.getsize(paf)
+    if sched == "whole":  # a base and a newline a read, read lengths summed
+        assert (st.counters["emit.fasta.reserved_bytes"]
+                == st.total_read_length + st.n_reads)
+
+
+@pytest.mark.parametrize("kw", [{"chunk_reads": 9},
+                                {"chunk_reads": 0, "gz_out": True}],
+                         ids=["chunked", "whole_gz"])
+def test_no_reservation_off_the_plain_whole_file(recorded, kw):
+    """The chunked schedule (appends per chunk) and gz outputs write as
+    before: no ``emit.reserve`` span, no reserved-bytes counter."""
+    st, _ = recorded("noreserve_" + "_".join(map(str, kw.values())), **kw)
+    assert not RESERVE & {s["name"] for s in st.spans}
+    assert "emit.fasta.reserved_bytes" not in st.counters
 
 
 @pytest.fixture(scope="module")
@@ -245,6 +266,48 @@ def test_native_emitter_stats(computed, tmp_path, monkeypatch, fn, shards,
     assert c["shards"] == int(shards)
     assert [s["name"] for s in rec.spans] == [
         f"emit.{file}.prep", f"emit.{file}.native", "run_pipeline"]
+
+
+@pytest.mark.parametrize("shards", ["1", "4"])
+def test_reserved_emit_leaves_no_reserved_byte(computed, tmp_path,
+                                               monkeypatch, shards):
+    """The fragment FASTA written over a file reserved past its output,
+    by the serial and the sharded emitter: an unreserved emit's bytes,
+    and no reserved NUL after them."""
+    monkeypatch.setenv("RAFT_EMIT_SHARDS", shards)
+    store, _, res = computed
+    plain, kept = str(tmp_path / "plain"), str(tmp_path / "kept")
+    assert native.emit_frags_full(plain, store, res)
+    with open(plain, "rb") as f:
+        want = f.read()
+    assert native.reserve(kept, 2 * len(want)) == 2 * len(want)
+    assert os.path.getsize(kept) == 2 * len(want)
+    assert native.emit_frags_full(kept, store, res, reserved=True)
+    with open(kept, "rb") as f:
+        assert f.read() == want
+
+
+def test_reserve_engages_only_on_regular_files(tmp_path):
+    """``reserve`` creates an absent file and allocates its range; a FIFO
+    (opening it for writing would block), a link to one and a character
+    device are never opened, and the native call refuses a FIFO without
+    blocking either."""
+    path = str(tmp_path / "new")
+    assert native.reserve(path, 1 << 20) == 1 << 20
+    assert os.path.getsize(path) == 1 << 20
+    fifo, link = str(tmp_path / "fifo"), str(tmp_path / "link")
+    os.mkfifo(fifo)
+    os.symlink(fifo, link)
+    out = []
+
+    def go():
+        out.extend(native.reserve(p, 4096) for p in (fifo, link, os.devnull))
+        out.append(native._get_lib().raftio_reserve(fifo.encode(), 4096))
+    t = threading.Thread(target=go, daemon=True)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert out[:3] == [0, 0, 0] and out[3] < 0
 
 
 def test_chunk_trace_values_are_span_durations(case, monkeypatch):
