@@ -19,7 +19,9 @@ kernel's coverage and the bucket's lengths, every output exactly.
 3. Holds the pileup kernel against its plain PyTorch twin on the card,
    exactly, on synthetic buckets: main-path shapes, a W=64 tail, two
    multi-stripe ultralong tiers, a width in each regime whose rows are not
-   16-byte aligned (the int-store path), pack32 and pairs, with empty
+   16-byte aligned (the int-store path), the wide buckets of the
+   ultra-long ONT cell ((2048, 4096), (384, 8192), (32, 32768)), pack32
+   and pairs, with empty
    rows, invalid events and padding; prints per shape the launch plan,
    both median times, the bound (the bytes the pileup must move over 3.35
    TB/s) and the kernel's share of it. Then (3b) ``scan_chop`` against its
@@ -30,7 +32,8 @@ kernel's coverage and the bucket's lengths, every output exactly.
    cluster regime (a run across every block boundary, a row high
    throughout, a read ending mid-block, rep_n > K, a wrapped flank, an
    int8 overflow at a block boundary; slots and survivors past shared
-   memory); each with both median times and its bound
+   memory), then those rows at the ultra-long ONT cell's three wide
+   shapes with the bench flags; each with both median times and its bound
    (``scan_chop_bound``).
 4. Checks the CLI's ``--device cuda`` output against the numpy oracle
    engine on a small dataset, then runs the whole-file CLI on the 32k-read
@@ -208,13 +211,17 @@ BENCH_ARGS = ["-e", "20", "-m", "1.5", "-p", "10000", "-l", "20000",
 OUTS = [".reads.fasta", ".coverage.txt", ".long_repeats.txt",
         ".long_repeats.bed"]
 # (B, W, events per row, wire format): synthetic buckets at the 32k bench
-# dataset's main shapes, a tail, two ultralong tiers of few rows, and one
-# width per regime with W % 4 != 0 (rows leave by int stores, not TMA)
+# dataset's main shapes, a tail, two ultralong tiers of few rows, one
+# width per regime with W % 4 != 0 (rows leave by int stores, not TMA),
+# and the wide buckets of the ultra-long ONT cell (ontul30x.whole:
+# regime 2 at every one, events a row as its reads get them)
 KERNEL_CASES = [
     (4096, 512, 60, "pack32"), (1536, 1024, 120, "pack32"),
     (384, 256, 30, "pack32"), (384, 256, 30, "pairs"), (8, 64, 10, "pack32"),
     (8, 1 << 16, 3000, "pairs"), (8, 1 << 20, 20000, "pairs"),
-    (33, 7, 5, "pack32"), (2, 65538, 3000, "pairs")]
+    (33, 7, 5, "pack32"), (2, 65538, 3000, "pairs"),
+    (2048, 4096, 160, "pack32"), (384, 8192, 250, "pack32"),
+    (32, 32768, 480, "pack32")]
 # Step 3b, scan_chop on the card: (label, B, W, AlgoParams fields or None
 # for the bench flags, coverage source, K or None for derive_cfg's). The
 # two bench shapes on the pileup kernel's output, then crafted rows over a
@@ -226,7 +233,9 @@ KERNEL_CASES = [
 # 2^20 and at a width that is neither a multiple of the tile nor of 4,
 # more runs than K slots, a wrapped flank and repeat_length = reso (more
 # slots than a block copies to shared memory), a small -p (survivors in
-# the global scratch).
+# the global scratch). Last, the wide buckets of the ultra-long ONT cell
+# with the bench flags: rows at (2048, 4096), the cluster regime at
+# (384, 8192) and (32, 32768).
 BENCH_FIELDS = dict(repeat_length=10000, interval_length=10000,
                     read_length=20000, flanking_length=1000,
                     overlap_length=500)
@@ -265,6 +274,9 @@ SCAN_CHOP_CASES = [
     ("wide small -p", 8, 1 << 17, dict(
         repeat_length=10000, interval_length=50, read_length=100,
         flanking_length=1000, overlap_length=20), "wide", None),
+    ("ont_ul bench", 2048, 4096, BENCH_FIELDS, "wide", None),
+    ("ont_ul bench", 384, 8192, BENCH_FIELDS, "wide", None),
+    ("ont_ul bench", 32, 32768, BENCH_FIELDS, "wide", None),
 ]
 # Step 9, the evaluation path: the recorded rows of the ground-truth
 # evaluation (both sweeps at 30x, 3 repeat families x 4 copies x 15 kb)

@@ -43,11 +43,17 @@ from raft_tpu_torch.io.fasta import ReadStore
 from raft_tpu_torch.io.paf import OverlapTable
 from raft_tpu_torch.params import AlgoParams
 from raft_tpu_torch.result import ComputeResult
+from raft_tpu_torch.ops import pileup_cuda, scan_chop_cuda
 from raft_tpu_torch.ops.pileup_cuda import decode_events, ev_bits_w0, pileup
 from raft_tpu_torch.ops.scan_chop_cuda import scan_chop
 
 I32 = torch.int32
 COV_OUT_MODES = ("host", "diff8", "cov")
+# A bucket wider than this many windows is "wide" for the engine.wide.*
+# counters: the widest tier that the pileup's regime 1 holds.
+WIDE_W = 2048
+WIDE_COUNTS = ("buckets", "reads", "windows", "events", "repeats",
+               "fragments")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -413,9 +419,15 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     the caller's open span (``profiling.Marks``): ``events`` (``sort``
     where the events come ungrouped), ``cov_events``, then per bucket
     ``bucket_prep``, ``h2d`` and ``step`` (attributes ``B``, ``W``,
-    ``E``), then ``integrate``; with the counters ``engine.events``,
-    ``engine.windows``, ``engine.buckets`` (device steps, one per bucket
-    and shard), ``engine.h2d_bytes`` and ``engine.d2h_bytes``.
+    ``E``, and ``pileup_regime`` and ``scan_chop_regime``: the launch
+    plans' regimes, 0 where the plain twins run), then ``integrate``; with
+    the counters ``engine.events``, ``engine.windows``, ``engine.buckets``
+    (device steps, one per bucket and shard), ``engine.h2d_bytes``,
+    ``engine.d2h_bytes``, ``engine.fragments``, ``engine.cut_reads``
+    (reads cut into more than one fragment) and ``engine.repeats``, and
+    over the buckets wider than ``WIDE_W`` windows (``_wide_counts``)
+    ``engine.wide.buckets`` (device steps), ``.reads``, ``.windows``,
+    ``.events``, ``.repeats`` and ``.fragments``.
     ``timers_out`` receives those spans' seconds summed by stage;
     ``grouped`` is an already-computed ``events_grouped`` triple
     (``--auto-e`` reuses its pass).
@@ -497,6 +509,9 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     devices = devices or [device]
     n_shards = len(devices)
     step = sharded_device_step(devices)
+    # what only the recording reads is worked out only while it records
+    recording = profiling.recording() is not None
+    wide = dict.fromkeys(WIDE_COUNTS, 0) if recording else None
     outs = []
     for bk in bucketing.iter_buckets(lens, ev_read, ev_lo, ev_hi, reso,
                                      presorted=True, prebinned=prebinned):
@@ -526,7 +541,11 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
             out["cov"] = cov
         elif "cov" in host:
             out["cov"] = host["cov"]
-        mark("step", **shape)
+        if recording and bk.W > WIDE_W:
+            for k, v in _wide_counts(bk, n_shards, out, nw_all).items():
+                wide[k] += v
+        mark("step", **shape, **(_regimes(cfg, devices[0]) if recording
+                                 else {}))
         outs.append((bk, out))
 
     # global offsets in read-id order
@@ -573,6 +592,12 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         frag_wh[d_idx] = np.repeat(out["whole"][:nu], cnt)
 
     mark("integrate")
+    if recording:
+        profiling.count("engine.fragments", n_frags)
+        profiling.count("engine.cut_reads", int((frag_n_all > 1).sum()))
+        profiling.count("engine.repeats", int(rep_off[-1]))
+        for k, v in wide.items():
+            profiling.count("engine.wide." + k, v)
     if timers_out is not None:
         timers_out.update(marks.seconds())
     return ComputeResult(
@@ -588,6 +613,35 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         total_read_length=int(lens.astype(np.int64).sum()),
         cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g,
     )
+
+
+def _regimes(cfg: StaticCfg, device) -> dict:
+    """The ``engine.step`` span's regime attributes: the regimes of the
+    two kernels' launch plans for ``cfg`` on ``device``, 0 off the card,
+    where the plain twins run."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return dict(pileup_regime=0, scan_chop_regime=0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return dict(
+        pileup_regime=pileup_cuda.launch_plan(cfg.B, cfg.W, sms).regime,
+        scan_chop_regime=scan_chop_cuda.launch_plan(
+            cfg.B, cfg.W, cfg.M, cfg.K, cfg.F, sms).regime)
+
+
+def _wide_counts(bk, n_shards: int, out: dict, nw_all: np.ndarray) -> dict:
+    """A wide bucket's share of the ``engine.wide.*`` counters, from its
+    reads, not its padded shape: device steps, reads, their windows
+    (ceil(length / r) each), the valid events it ships (``pack_events``'
+    rule), and the repeats and fragments read back from its packed rows."""
+    nu = bk.n_used
+    w0 = bk.ev_w0.astype(np.int64)
+    w1 = bk.ev_w1.astype(np.int64)
+    return {"buckets": n_shards, "reads": nu,
+            "windows": int(nw_all[bk.read_ids].sum()),
+            "events": int(((w1 >= w0) & (w0 >= 0) & (w0 < bk.W)).sum()),
+            "repeats": int(out["rep_n"][:nu].astype(np.int64).sum()),
+            "fragments": int(out["n_frag"][:nu].astype(np.int64).sum())}
 
 
 def _bucket_global_rows(bk, n_shards: int) -> np.ndarray:

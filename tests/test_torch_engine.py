@@ -251,3 +251,55 @@ def test_on_bucket_sees_each_bucket_before_its_step(path):
         want = ej.pileup_diff_scatter(bk.ev_row, bk.ev_w0, bk.ev_w1, jcfg)[0]
         np.testing.assert_array_equal(cov, np.asarray(want),
                                       err_msg=f"B={bk.B} W={bk.W}")
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]],
+                         ids=["one", "sharded"])
+def test_wide_and_chop_counters(devices):
+    """Under a recording, the engine's chop counters and, over the buckets
+    wider than 2,048 windows, its ``engine.wide.*`` counters equal what
+    the inputs and the result give: 300 reads of 15-20 kb (one 512-window
+    tier) beside 40 of 150-600 kb (merged into one wide tier), so the
+    wide reads are those over 2,048 x r bases."""
+    from raft_tpu_torch import profiling
+    rng = np.random.default_rng(31)
+    lens = rng.permutation(np.concatenate([
+        rng.integers(15_000, 20_000, 300),
+        rng.integers(150_000, 600_000, 40)])).astype(np.int32)
+    rows = _random_rows(rng, lens, 1500)
+    big = np.nonzero(lens > 150_000)[0][:6]
+    rows += [(int(a), 50_000, 90_000, int(b), 10_000, 50_000)
+             for a, b in zip(big, big[1:])] * 12
+    (store, table, params), _ = _case(lens, rows, est_cov=5, cov_mul=1.2,
+                                      repeat_length=10000,
+                                      interval_length=10000,
+                                      read_length=20000, overlap_length=500,
+                                      flanking_length=1000)
+    with profiling.run(force=True) as rec:
+        res = compute_torch(store, table, params, device="cpu",
+                            devices=devices)
+    c = rec.counters
+    reso = params.reso
+    wide = lens.astype(np.int64) > engine_torch.WIDE_W * reso
+    ev_read, ev_lo, ev_hi = table.events(store.n_reads)
+    w0 = ev_lo // reso
+    w1 = np.where(ev_hi < 0, -1, ev_hi // reso)
+    per_frag = np.bincount(res.frag_read, minlength=len(lens))
+    n_shards = len(devices or [None])
+    assert c["engine.fragments"] == len(res.frag_read)
+    assert c["engine.cut_reads"] == int((per_frag > 1).sum()) >= 40
+    assert c["engine.repeats"] == len(res.rep_s) > 0
+    assert c["engine.wide.buckets"] == n_shards
+    assert c["engine.wide.reads"] == int(wide.sum()) == 40
+    assert c["engine.wide.windows"] == int(
+        (-(-lens.astype(np.int64) // reso))[wide].sum())
+    assert c["engine.wide.events"] == int(
+        ((w1 >= w0) & (w0 >= 0) & wide[ev_read]).sum())
+    assert c["engine.wide.repeats"] == int(np.diff(res.rep_off)[wide].sum())
+    assert c["engine.wide.fragments"] == int(per_frag[wide].sum())
+    assert {k for k in c if k.startswith("engine.wide.")} == {
+        "engine.wide." + k for k in engine_torch.WIDE_COUNTS}
+    steps = [s["attrs"] for s in rec.spans if s["name"] == "engine.step"]
+    assert sorted(a["W"] for a in steps) == [512, 16384]
+    assert all(a["pileup_regime"] == a["scan_chop_regime"] == 0
+               for a in steps)

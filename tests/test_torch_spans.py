@@ -49,6 +49,10 @@ NAMES = {
 COUNTERS = {"parse.fasta_bytes", "parse.paf_bytes", "parse.reads",
             "parse.paf_rows", "engine.buckets", "engine.events",
             "engine.windows", "engine.h2d_bytes", "engine.d2h_bytes",
+            "engine.fragments", "engine.cut_reads", "engine.repeats",
+            *(f"engine.wide.{k}" for k in ("buckets", "reads", "windows",
+                                           "events", "repeats",
+                                           "fragments")),
             *(f"{w}.{slot}" for w in WRITERS
               for slot in native.EMIT_STATS)}
 
@@ -70,6 +74,17 @@ def case(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("spans"))
     reads, paf = datagen.standard_case(seed=21, tmpdir=tmp, n_reads=37,
                                        simulated=True)
+    return reads, paf, tmp
+
+
+@pytest.fixture(scope="module")
+def ul_case(tmp_path_factory):
+    """Ultra-long reads (110-300 kb): every bucket wider than 2,048
+    windows at the default -r 50, most reads cut."""
+    tmp = str(tmp_path_factory.mktemp("spans_ul"))
+    reads, paf = datagen.standard_case(seed=22, tmpdir=tmp, n_reads=10,
+                                       len_lo=110_000, len_hi=300_000,
+                                       n_pairs=60)
     return reads, paf, tmp
 
 
@@ -99,10 +114,14 @@ def test_recording_off_hands_out_nothing(case, monkeypatch, sched):
 
 @pytest.mark.parametrize("kw", [{"chunk_reads": 0}, {"chunk_reads": 9},
                                 {"chunk_reads": 0, "gz_out": True},
-                                {"chunk_reads": 9, "spill_paf": True}],
-                         ids=["whole", "chunked", "whole_gz", "spill"])
-def test_recording_on_changes_no_byte(case, monkeypatch, kw):
-    reads, paf, tmp = case
+                                {"chunk_reads": 9, "spill_paf": True},
+                                {"chunk_reads": 0, "ul": True}],
+                         ids=["whole", "chunked", "whole_gz", "spill",
+                              "ul_whole"])
+def test_recording_on_changes_no_byte(request, monkeypatch, kw):
+    kw = dict(kw)
+    ul = kw.pop("ul", False)
+    reads, paf, tmp = request.getfixturevalue("ul_case" if ul else "case")
     name = "_".join(f"{k}{v}" for k, v in kw.items())
     sfx = ".gz" if kw.get("gz_out") else ""
     monkeypatch.delenv("RAFT_SPANS", raising=False)
@@ -150,7 +169,10 @@ def test_documented_names(recorded, sched):
         if s["name"] == "emit.fasta.reserve_wait":
             assert by_id[s["parent"]]["name"] == "emit.fasta"
         if s["name"] in ("engine.bucket_prep", "engine.h2d", "engine.step"):
-            assert set(s["attrs"]) == {"B", "W", "E"}
+            regimes = ({"pileup_regime": 0, "scan_chop_regime": 0}
+                       if s["name"] == "engine.step" else {})
+            assert set(s["attrs"]) == {"B", "W", "E", *regimes}
+            assert regimes.items() <= s["attrs"].items()
             assert by_id[s["parent"]]["name"] == "compute"
         if s["name"] in WRITERS:
             assert s["thread"] != root_thread(st)
@@ -200,6 +222,37 @@ def test_counters_count_what_they_say(recorded, sched, case):
     if sched == "whole":  # a base and a newline a read, read lengths summed
         assert (st.counters["emit.fasta.reserved_bytes"]
                 == st.total_read_length + st.n_reads)
+
+
+def test_ul_counters_tie_to_the_outputs(ul_case, monkeypatch):
+    """Ultra-long reads: every read in a wide bucket, so the
+    ``engine.wide.*`` counters hold the whole pass; fragments, cut reads
+    and repeats as the output files show them."""
+    reads, paf, tmp = ul_case
+    monkeypatch.setenv("RAFT_SPANS", "1")
+    st = _run(reads, paf, tmp, "ul_count")
+    c = st.counters
+    steps = [s["attrs"] for s in st.spans if s["name"] == "engine.step"]
+    assert steps and all(a["W"] > 2048 for a in steps)
+    with open(f"{tmp}/ul_count.reads.fasta", "rb") as f:
+        heads = [ln for ln in f if ln.startswith(b">")]
+    with open(f"{tmp}/ul_count.long_repeats.txt", "rb") as f:
+        # "read <i>, <start>,<end> <start>,<end> ..." a line
+        n_rep = sum(len(ln.split(b", ", 1)[1].split()) for ln in f)
+    per_read: dict = {}
+    for h in heads:  # >read=<k>,<name>,pos_on_original_read=<a>-<b>
+        name = h.split(b",")[1]
+        per_read[name] = per_read.get(name, 0) + 1
+    assert c["engine.fragments"] == len(heads) == c["engine.wide.fragments"]
+    assert c["engine.cut_reads"] == sum(v > 1 for v in per_read.values())
+    assert c["engine.cut_reads"] >= 5
+    assert c["engine.repeats"] == n_rep == c["engine.wide.repeats"] > 0
+    assert c["engine.wide.reads"] == st.n_reads
+    assert c["engine.wide.windows"] == c["engine.windows"] == st.total_windows
+    assert c["engine.wide.events"] == c["engine.events"]
+    assert c["engine.wide.buckets"] == c["engine.buckets"] == len(steps)
+    assert ({k for k in c if k.startswith("engine.wide.")}
+            == {k for k in COUNTERS if k.startswith("engine.wide.")})
 
 
 @pytest.mark.parametrize("kw", [{"chunk_reads": 9},
