@@ -7,14 +7,17 @@
 The device step runs two hand-written kernels a bucket, each built from
 ``raft_tpu_torch/csrc``: the coverage pileup (``csrc/pileup.cu``), then
 ``scan_chop`` (``csrc/scan_chop.cu``: the repeat scan, markers and
-fragments, the ``diff8`` diff and the packing). Wherever a step below
-holds "the kernel" against its plain twin on a bucket, it holds both:
+fragments, the ``diff8`` diff and the packing); one more, the gather
+(``csrc/gather.cu``), writes every bucket's device inputs from one copy
+of the event table, once per ``compute_torch`` and device. Wherever a
+step below holds "the kernel" against its plain twin on a bucket, it
+holds both:
 the pileup on the bucket's device inputs, then ``scan_chop`` on the
 kernel's coverage and the bucket's lengths, every output exactly.
 
 1. Prints the card (torch's name, and nvidia-smi's name, power limit and
    compute mode).
-2. Builds both CUDA kernels from ``raft_tpu_torch/csrc`` with nvcc, into
+2. Builds the CUDA kernels from ``raft_tpu_torch/csrc`` with nvcc, into
    one library.
 3. Holds the pileup kernel against its plain PyTorch twin on the card,
    exactly, on synthetic buckets: main-path shapes, a W=64 tail, two
@@ -40,9 +43,13 @@ kernel's coverage and the bucket's lengths, every output exactly.
    bench dataset (``gen_dataset``, seed 7) with ``--device cuda`` and
    ``--device cpu``, compares the four output files byte for byte, and
    checks that the CUDA run launched each kernel once per bucket it
-   reported. Then holds both kernels against their plain twins, exactly,
-   on every bucket of that dataset as the engine hands it to the device,
-   and checks those are the buckets the CLI run reported.
+   reported (the gather once). Then holds both kernels against their
+   plain twins, exactly, on every bucket of that dataset as the engine
+   hands it to the device, and checks those are the buckets the CLI run
+   reported; then the gather against its plain twin and ``host_inputs``
+   of every bucket, pack32 and pairs, on that dataset's table and on a
+   table of megabase reads whose widest steps have int32 event columns
+   (``wide_table``), timed on the dataset against its bytes.
 5. Coverage return modes on the 32k dataset: ``--cov-out diff8`` and
    ``--cov-out cov`` with ``--device cuda`` must equal the ``host`` run
    byte for byte; then each mode's engine stage seconds (the ``step``
@@ -69,8 +76,8 @@ kernel's coverage and the bucket's lengths, every output exactly.
    each launches each kernel once per bucket and writes the step 4 run's
    files. Then (7b) one ``compute_torch`` pass over the 32k dataset in
    ``host`` mode under torch.profiler, after a warm-up pass in the same
-   session: the card runs the two kernels once per bucket each and
-   copies, nothing else.
+   session: the card runs the two kernels once per bucket each, the
+   gather once, and copies, nothing else.
 8. Streaming at real size: a 100k-read dataset (``gen_dataset``, seed 7,
    about 2.4 GB of FASTA, over the 2 GB auto-chunk gate) run by the
    default CLI with ``--device cuda`` must auto-stream in 4 chunks (with
@@ -118,7 +125,8 @@ kernel's coverage and the bucket's lengths, every output exactly.
       the parity check;
    b. ``tools/bench_fetch`` at 32k: step 4's bucket count, nine launches
       per bucket (warm-up, three timed runs, the outputs to fetch, the
-      engine-like warm-up and three timed runs);
+      engine-like warm-up and three timed runs) and four of the gather
+      (the engine-like runs');
    c. ``tools/bench_pileup`` at 32k: every bucket exact, each launched
       once to warm up and ``LAUNCHES`` times a round;
    d. ``tools/bench_chunk`` on step 8's 100k dataset, auto-stream (4
@@ -131,12 +139,14 @@ kernel's coverage and the bucket's lengths, every output exactly.
    are taken on a shared host), and every such run's ``--stats-json``
    must name ``cuda:0`` and report one pileup launch per bucket.
 11. Checks that neither jax nor any ``raft_tpu`` module was imported,
-   prints the kernel table (``pileup`` and ``scan_chop``) as one JSON
-   line, then ``{"ok": true, "device": {...}}`` as the last line.
+   prints the kernel table (``pileup``, ``scan_chop`` and ``gather``) as
+   one JSON line, then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Every CLI run on the card (steps 4-8) counts its own launches of each
-kernel (reset just before, read just after) and must have launched each
-once per bucket it reports; it prints its wall, reads/s, stage seconds
+kernel (reset just before, read just after) and must have launched the
+pileup and ``scan_chop`` once per bucket it reports and the gather once
+per chunk and card; it prints its wall, reads/s, stage seconds
 and peak ``torch.cuda.max_memory_allocated``. So does every entry point
 of step 10 (``bench_pileup`` launches only the pileup, and the bench's
 parity check one more pileup); the fresh processes of 10d-e report both
@@ -318,10 +328,20 @@ def launch_counts() -> dict:
     return _lib.launch_counts()
 
 
-def once_each(counts: dict, n: int, label: str) -> None:
-    """Fails unless every kernel launched ``n`` > 0 times."""
-    check(n > 0 and set(counts.values()) == {n},
-          f"{label}: launches {counts}, not {n} of each kernel")
+def once_each(counts: dict, n: int, label: str, computes: int) -> None:
+    """Fails unless the pileup and ``scan_chop`` launched ``n`` > 0 times
+    each and the gather ``computes`` times: once per ``compute_torch``
+    and device."""
+    check(n > 0 and counts == {"pileup": n, "scan_chop": n,
+                               "gather": computes},
+          f"{label}: launches {counts}, not {n} of the pileup and "
+          f"scan_chop and {computes} of the gather")
+
+
+def computes_of(st: dict) -> int:
+    """A run's gather launches, from its stats: one per chunk (one
+    ``compute_torch`` each) and distinct device."""
+    return st["n_chunks"] * len(set(st["devices"]))
 
 
 def device_ms(torch, fn, launches=20, rounds=5) -> float:
@@ -625,7 +645,7 @@ def profile_step(torch, et, pipeline, params, reads, paf, n_buckets):
     (memcpy, memset). Prints each device name's count and microseconds."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from raft_tpu_torch.ops import pileup_cuda, scan_chop_cuda
+    from raft_tpu_torch.ops import gather_cuda, pileup_cuda, scan_chop_cuda
     stats = pipeline.TorchRunStats()
     store, table = pipeline.load_inputs(reads, paf, stats)
     params = params.replace(real_reads=store.real_reads,
@@ -647,7 +667,8 @@ def profile_step(torch, et, pipeline, params, reads, paf, n_buckets):
             torch.cuda.synchronize()
             prof.step()
     kinds = {"pileup": pileup_cuda.KERNEL_NAMES,
-             "scan_chop": scan_chop_cuda.KERNEL_NAMES}
+             "scan_chop": scan_chop_cuda.KERNEL_NAMES,
+             "gather": gather_cuda.KERNEL_NAMES}
     count = {k: sum(n for name, (n, _) in on_card.items()
                     if any(kn in name for kn in names))
              for k, names in kinds.items()}
@@ -663,12 +684,14 @@ def profile_step(torch, et, pipeline, params, reads, paf, n_buckets):
     for name, (n, us) in sorted(work.items()):
         print(f"profiled 32k step (host mode): {n:4d} x {name[:90]} "
               f"{us:.1f} us")
-    check(not other and count["pileup"] == count["scan_chop"] == n_buckets,
+    check(not other and count["pileup"] == count["scan_chop"] == n_buckets
+          and count["gather"] == 1,
           f"profiled 32k step: kernels {count}, other device work {other} "
           f"for {n_buckets} buckets")
     busy = sum(us for _, us in work.values())
     print(f"profiled 32k step: only pileup and scan_chop ({n_buckets} "
-          f"each) and copies on the card; device busy {busy:.1f} us of the "
+          f"each), one gather and copies on the card; device busy "
+          f"{busy:.1f} us of the "
           f"pass's {span_us:.1f} us (idle "
           f"{1 - busy / span_us if span_us else float('nan'):.1%})")
 
@@ -821,6 +844,114 @@ def real_bucket_phase(torch, et, pileup_cuda, pipeline, params, reads, paf):
                                                         params, reads, paf)]
 
 
+def gather_bound_bytes(plan, grouped) -> int:
+    """The least bytes the gather moves for ``plan``: every step's rows'
+    read ids (8 B), offsets (16 B) and lengths (4 B), and their events'
+    two window columns (8 B each) read once; the arena's arrays written
+    once."""
+    off = grouped[0]
+    n = sum(len(st.read_ids) for st in plan.steps)
+    ev = sum(int((off[st.read_ids + 1] - off[st.read_ids]).sum())
+             for st in plan.steps)
+    return 28 * n + 8 * ev + sum(plan.out_bytes(i)
+                                 for i in range(len(plan.steps)))
+
+
+def wide_table(np, reso: int, seed: int = 7, n: int = 768):
+    """A read-grouped table of reads of 20 kb to 1.6 Mbp (the UL cell's
+    longest reach 0.9 Mbp), windows inside their reads as a strict pass
+    bins them: buckets of up to 32,768 windows, the widest with int32
+    event columns."""
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.uniform(np.log(2e4), np.log(1.6e6), n)).astype(
+        np.int32)
+    counts = rng.integers(0, 400, n)
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    nw = np.repeat(-(-lens.astype(np.int64) // reso), counts)
+    w0 = (rng.random(int(off[-1])) * nw).astype(np.int64)
+    w1 = np.minimum(w0 + rng.integers(0, 400, len(w0)), nw - 1)
+    return lens, (off, w0.astype(np.int32), w1.astype(np.int32))
+
+
+def hold_gather(torch, np, et, params, lens, grouped, label):
+    """The gather on one table, planned as the engine plans it
+    (``plan_steps``): the kernel equals its plain twin and ``host_inputs``
+    of every ``iter_buckets`` bucket, exactly, in both wire formats.
+    Returns the pack32 plan, the table and the plan's metadata on the
+    card, and the largest |kernel - twin| over both formats."""
+    from raft_tpu_torch import bucketing
+    from raft_tpu_torch.ops import gather_cuda
+    bks = list(bucketing.iter_buckets(lens, None, None, None, params.reso,
+                                      presorted=True, prebinned=grouped))
+    tab, _ = gather_cuda.upload_table(*grouped, lens, "cuda")
+    err = 0
+    for wire in ("pairs", "pack32"):
+        planned = list(et.plan_steps(lens, np.diff(grouped[0]), params))
+        if wire == "pairs":
+            planned = [(sh, dataclasses.replace(cfg, ev_pack=0),
+                        [st._replace(pairs=True) for st in steps])
+                       for sh, cfg, steps in planned]
+        plan = gather_cuda.GatherPlan([st for _, _, steps in planned
+                                       for st in steps])
+        got = gather_cuda.gather(tab, plan)
+        meta = torch.from_numpy(plan.meta).cuda()
+        want = gather_cuda.gather_torch(tab, meta, plan)
+        torch.cuda.synchronize()
+        check(len(bks) == len(plan.steps),
+              f"gather {wire}, {label}: {len(plan.steps)} steps, "
+              f"{len(bks)} buckets")
+        for i, (bk, (_, cfg, _)) in enumerate(zip(bks, planned)):
+            host = et.host_inputs(bk, cfg)
+            for g, w, h in zip(gather_cuda.views(got, plan, i),
+                               gather_cuda.views(want, plan, i), host):
+                if g.numel():
+                    err = max(err, int((g.long() - w.long()).abs().max()))
+                check(torch.equal(g, w) and np.array_equal(
+                    g.cpu().numpy(), h),
+                      f"gather {wire}, {label}: step {i} (B={cfg.B} "
+                      f"W={cfg.W}) differs from the plain twin or "
+                      "host_inputs")
+    return plan, tab, meta, err
+
+
+def gather_phase(torch, np, et, pipeline, params, reads, paf):
+    """The gather held exactly against its plain twin and ``host_inputs``
+    (``hold_gather``) on the dataset's table and on a table of megabase
+    reads (``wide_table``), whose widest steps have int32 event columns;
+    pack32 on the dataset timed, kernel and twin, against its bytes over
+    3.35 TB/s. Returns the kernel table's row."""
+    from raft_tpu_torch.ops import gather_cuda
+    stats = pipeline.TorchRunStats()
+    store, table = pipeline.load_inputs(reads, paf, stats)
+    params = params.replace(real_reads=store.real_reads,
+                            symmetric_overlaps=table.symmetric)
+    lens = store.lens.astype(np.int32)
+    grouped = table.events_grouped(store.n_reads, lens, params.reso)
+    plan, tab, meta, err = hold_gather(torch, np, et, params, lens, grouped,
+                                       "32k table")
+    check(all(st.trunc16 for st in plan.steps),
+          "gather, 32k table: a step without int16 columns")
+    wplan, _, _, werr = hold_gather(torch, np, et, params,
+                                    *wide_table(np, params.reso),
+                                    "wide table")
+    wide = [st.W for st in wplan.steps if not st.trunc16]
+    check(len(wide) > 0, "gather, wide table: no step with int32 columns")
+    ms = device_ms(torch, lambda: gather_cuda.gather(tab, plan))
+    plain = device_ms(torch, lambda: gather_cuda.gather_torch(
+        tab, meta, plan), launches=3, rounds=3)
+    bms = gather_bound_bytes(plan, grouped) / 3.35e12 * 1e3
+    print(f"gather over the {len(plan.steps)} buckets of the main path "
+          f"({len(grouped[1])} events, {plan.n_blocks} blocks): kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms, share "
+          f"{bms / ms:.1%}; exact against the twin and host_inputs, pack32 "
+          f"and pairs, there and on the wide table ({len(wplan.steps)} "
+          f"steps, {len(wide)} with int32 columns at W {sorted(set(wide))}"
+          f"); max |kernel - twin| {max(err, werr)}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                max_abs_err=max(err, werr))
+
+
 def run_cli(cli, args, label):
     t0 = time.perf_counter()
     rc = cli.main(args)
@@ -870,7 +1001,7 @@ def drive(torch, cli, pileup_cuda, opts, inputs, prefix, label, n_reads):
     with open(sj) as f:
         st = json.load(f)
     os.remove(sj)
-    once_each(counts, len(st["buckets"]), label)
+    once_each(counts, len(st["buckets"]), label, computes_of(st))
     check(st["launches"] == counts,
           f"{label}: the run reports launches {st['launches']}, {counts} "
           "counted")
@@ -959,7 +1090,8 @@ def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
             torch.cuda.synchronize()
             walls[kind].append(time.perf_counter() - t0)
             counts = launch_counts()
-            once_each(counts, len(st.buckets), f"{kind} {sched}")
+            once_each(counts, len(st.buckets), f"{kind} {sched}",
+                      st.n_chunks)
             check(digest_and_remove(prefix) == want,
                   f"{kind} {sched}: outputs differ from the unsharded "
                   "--device cuda run's")
@@ -1090,10 +1222,11 @@ def multi_process_phase(inputs, prefix, want, devs, visible=None):
         r = json.loads(out.splitlines()[-1])
         check(not r["foreign"], f"{label} imported {r['foreign']}")
         held = r["held"]
-        check(len(held) > 0 and set(r["launches"].values())
-              == {len(held) if r_dev == "cuda" else 0},
+        n = len(held) if r_dev == "cuda" else 0
+        check(len(held) > 0 and r["launches"] == {
+            "pileup": n, "scan_chop": n, "gather": int(r_dev == "cuda")},
               f"{label}: launches {r['launches']} for {len(held)} device "
-              "steps")
+              "steps and one compute")
         bad = [h for h in held if not (h["equal"] and h.get("sc_equal"))
                or h["max_abs_err"] or h["sc_max_abs_err"]]
         check(not bad, f"{label}: kernel != plain on {bad}")
@@ -1255,9 +1388,12 @@ def check_point(rec: dict, want_row: dict | None) -> str:
     run_b, cmp_b = [tuple(b) for b in st.buckets], rec["compute_buckets"]
     on_card = rec["device"] == "cuda"
     n = len(run_b) + len(cmp_b) if on_card else 0
-    check(set(rec["launches"].values()) == {n} and (n > 0 or not on_card),
+    computes = st.n_chunks + 1 if on_card else 0
+    check(rec["launches"] == {"pileup": n, "scan_chop": n,
+                              "gather": computes}
+          and (n > 0 or not on_card),
           f"{label}: launches {rec['launches']} for {len(run_b)} + "
-          f"{len(cmp_b)} buckets")
+          f"{len(cmp_b)} buckets and {computes} computes")
     check(st.schedule != "whole" or run_b == cmp_b,
           f"{label}: the product run's buckets are not compute_torch's")
     sim = "" if rec["sim_s"] is None else f"simulation {rec['sim_s']:.3f} s, "
@@ -1331,7 +1467,7 @@ def held_point_run(torch, pipeline, pileup_cuda, rec, label, times,
           == [tuple(b) for b in want_buckets],
           f"{label}: {len(rows)} buckets held, {len(want_buckets)} wanted, "
           "or not the same buckets")
-    once_each(counts, len(rows), label)
+    once_each(counts, len(rows), label, st.n_chunks)
     check(digest_and_remove(params.outputfilename) == want_digest,
           f"{label}: outputs differ from the point's")
     print(f"{label}: {st.schedule} x{st.n_chunks}, both kernels == plain "
@@ -1402,7 +1538,9 @@ def eval_phase(torch, np, pipeline, pileup_cuda, work, times):
             rows, _, _ = held_point_run(torch, pipeline, pileup_cuda, rec,
                                         label, times, rec["stats"].buckets,
                                         rec["digest"])
-            check(set(rec["launches"].values()) == {2 * len(rows)},
+            check(rec["launches"] == {
+                "pileup": 2 * len(rows), "scan_chop": 2 * len(rows),
+                "gather": rec["stats"].n_chunks + 1},
                   f"{label}: the point launched {rec['launches']} for "
                   f"{len(rows)} buckets held")
             held += rows
@@ -1573,7 +1711,7 @@ def on_card(run: dict, label: str) -> dict:
     ``cuda:0``, one launch of each kernel per bucket. Returns the
     launches."""
     check(run["devices"] == ["cuda:0"], f"{label}: devices {run['devices']}")
-    once_each(run["launches"], run["n_buckets"], label)
+    once_each(run["launches"], run["n_buckets"], label, run["n_chunks"])
     return run["launches"]
 
 
@@ -1603,9 +1741,10 @@ def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
           and line["nvidia_smi"] == smi.strip().splitlines()[0],
           f"{label}: exit {rc}, line {line}")
     runs = (1 + HARNESS_ROUNDS) * n_buckets
-    check(counts == {"pileup": runs + 1, "scan_chop": runs},
+    check(counts == {"pileup": runs + 1, "scan_chop": runs,
+                     "gather": 1 + HARNESS_ROUNDS},
           f"{label}: launches {counts}, not (1 + {HARNESS_ROUNDS}) x "
-          f"{n_buckets} of each (+ 1 pileup)")
+          f"{n_buckets} of each (+ 1 pileup), a gather a run")
     check(digest_and_remove(os.path.join(hw, "ours")) == want,
           f"{label}: outputs differ from step 4's")
     print(f"{label}: launches {counts} (= (1 + {HARNESS_ROUNDS}) x "
@@ -1621,7 +1760,8 @@ def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
     print(f"{label}: launches {counts}; {json.dumps(line)}")
     check(rc == 0 and line["n_buckets"] == n_buckets,
           f"{label}: exit {rc}, {line.get('n_buckets')} buckets")
-    once_each(counts, 9 * n_buckets, label)
+    # host_inputs for the link's parts; the gather in the engine-like runs
+    once_each(counts, 9 * n_buckets, label, 4)
     by_path[label] = counts
 
     # c. the kernel against its plain twin, bucket by bucket
@@ -1639,7 +1779,8 @@ def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
           and all(r["outputs_equal"] for r in rows),
           f"{label}: exit {rc}, {len(rows)} shapes, not all equal")
     per = 1 + line["rounds"] * bench_pileup.LAUNCHES
-    check(counts == {"pileup": per * n_buckets, "scan_chop": 0},
+    check(counts == {"pileup": per * n_buckets, "scan_chop": 0,
+                     "gather": 0},
           f"{label}: launches {counts}, not {per} x {n_buckets} pileups "
           "alone")
     print(f"{label}: all {len(rows)} buckets exact; launches {counts}")
@@ -1709,7 +1850,8 @@ def main(argv: list[str]) -> int:
         os.environ.pop(k, None)
     from raft_tpu_torch import cli, gen_dataset, pipeline, profiling
     from raft_tpu_torch import engine_torch as et
-    from raft_tpu_torch.ops import _lib, pileup_cuda, scan_chop_cuda
+    from raft_tpu_torch.ops import _lib, gather_cuda, pileup_cuda
+    from raft_tpu_torch.ops import scan_chop_cuda
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -1798,7 +1940,7 @@ def main(argv: list[str]) -> int:
                 stats[dev] = json.load(f)
         shapes = [tuple(b) for b in stats["cuda"]["buckets"]]
         print(f"buckets (B, W, E) of the cuda run: {len(shapes)} {shapes}")
-        once_each(counts, len(shapes), "32k cuda run")
+        once_each(counts, len(shapes), "32k cuda run", 1)
         check(same_outputs(pre["cuda"], pre["cpu"]),
               "--device cuda and --device cpu outputs differ")
         check(stats["cuda"]["n_reads"] == N_READS
@@ -1835,6 +1977,8 @@ def main(argv: list[str]) -> int:
         print(f"scan_chop over the {len(real)} buckets of the main path: "
               f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
               f"ms, share {bms / kms:.1%}, exact on all")
+        gather_row = gather_phase(torch, np, et, pipeline, params, reads,
+                                  paf)
         by_path = {"32k whole-file": counts}
 
         # 5. coverage return modes: byte-equal to the host run
@@ -1886,7 +2030,8 @@ def main(argv: list[str]) -> int:
         with open(os.path.join(tdir, profiling.TRACE_FILE)) as f:
             events = json.load(f)["traceEvents"]
         for kern, names in (("pileup", pileup_cuda.KERNEL_NAMES),
-                            ("scan_chop", scan_chop_cuda.KERNEL_NAMES)):
+                            ("scan_chop", scan_chop_cuda.KERNEL_NAMES),
+                            ("gather", gather_cuda.KERNEL_NAMES)):
             kev = [e for e in events
                    if any(k in e.get("name", "") for k in names)]
             check(len(kev) >= st["launches"][kern],
@@ -1999,11 +2144,11 @@ def main(argv: list[str]) -> int:
 
     return report(torch, name, "32k whole-file", by_path, real,
                   kcases + real + big_rows + shard_rows + rank_rows
-                  + eval_rows, sc_cases)
+                  + eval_rows, sc_cases, gather_row)
 
 
 def report(torch, name, main_label, by_path, main_rows, all_rows,
-           sc_cases=()) -> int:
+           sc_cases=(), gather_row=None) -> int:
     """The closing lines: the kernel table, then the result. For each
     kernel: the launches of the main path's run and of every path
     (``by_path``: each path's launches by kernel), the largest
@@ -2012,7 +2157,8 @@ def report(torch, name, main_label, by_path, main_rows, all_rows,
     milliseconds summed over the main path's buckets; no single PyTorch
     call computes windowed interval coverage, or the repeat scan and
     fragment spans, so ``library_ms`` is null. ``--ab`` has no main path
-    run and prints no kernel table."""
+    run and prints no kernel table. ``gather_row``, where given, is the
+    gather's row (``gather_phase``); it replaces no TPU kernel."""
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "raft_tpu"))
     check(not foreign, f"imported {foreign}")
@@ -2047,7 +2193,14 @@ def report(torch, name, main_label, by_path, main_rows, all_rows,
             "bound_by": ("bytes" if all(r["sc_bound_by"] == "bytes"
                                         for r in main_rows)
                          else "operations"),
-            "library_ms": None}]}))
+            "library_ms": None}] + ([{
+            "name": "gather", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/gather.cu", "replaces": None,
+            "launches": by_path[main_label]["gather"],
+            "launches_by_path": {k: v["gather"] for k, v in by_path.items()
+                                 if "gather" in v},
+            **gather_row, "bound_by": "bytes", "library_ms": None}]
+            if gather_row else [])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -3251,6 +3251,89 @@ int raftio_reserve(const char* path, int64_t nbytes) {
   return -err;
 }
 
+// Σcov, the coverage summed over every window of every read (the
+// "coverage per window" line's numerator), in closed form from read-grouped,
+// window-binned events with the coverage renderer's clamp semantics: an
+// event of read i counts iff w1 >= w0 and 0 <= w0 < nw (nw = ceil(len /
+// reso)), over min(w1, nw - 1) - w0 + 1 windows. Reads [lo, hi); where o0
+// is given, each event is copied to (o0, o1) on the way. The inner loops
+// are branch-free, so they vectorise.
+static int64_t cov_sum_reads(const int32_t* w0, const int32_t* w1,
+                             const int64_t* ev_off, const int64_t* lens,
+                             int64_t lo, int64_t hi, int32_t reso,
+                             int32_t* o0, int32_t* o1) {
+  int64_t sum = 0;
+  for (int64_t i = lo; i < hi; i++) {
+    const int64_t nw = (lens[i] + reso - 1) / reso;
+    int64_t s = 0;
+    const int64_t j0 = ev_off[i], j1 = ev_off[i + 1];
+    if (o0) {
+      for (int64_t j = j0; j < j1; j++) {
+        const int32_t a = w0[j], b = w1[j];
+        o0[j] = a;
+        o1[j] = b;
+        const int64_t v = (b < nw - 1 ? b : nw - 1) - int64_t{a} + 1;
+        s += (b >= a && a >= 0 && a < nw) ? v : 0;
+      }
+    } else {
+      for (int64_t j = j0; j < j1; j++) {
+        const int32_t a = w0[j], b = w1[j];
+        const int64_t v = (b < nw - 1 ? b : nw - 1) - int64_t{a} + 1;
+        s += (b >= a && a >= 0 && a < nw) ? v : 0;
+      }
+    }
+    sum += s;
+  }
+  return sum;
+}
+
+// cov_sum_reads over all reads, cut into ranges of about equal events, one
+// a thread (at most 8, one below 2^18 events), as raftio_cov_hist threads.
+static int64_t cov_sum_threaded(const int32_t* w0, const int32_t* w1,
+                                const int64_t* ev_off, const int64_t* lens,
+                                int64_t n_reads, int32_t reso, int32_t* o0,
+                                int32_t* o1) {
+  const int64_t m = ev_off[n_reads];
+  unsigned hw = std::thread::hardware_concurrency();
+  int nth = static_cast<int>(std::min<unsigned>(hw ? hw : 1, 8));
+  if (m < (int64_t{1} << 18)) nth = 1;
+  std::vector<int64_t> part(static_cast<size_t>(nth), 0);
+  auto work = [&](int t) {
+    const int64_t lo = std::lower_bound(ev_off, ev_off + n_reads,
+                                        m * t / nth) - ev_off;
+    const int64_t hi = std::lower_bound(ev_off, ev_off + n_reads,
+                                        m * (t + 1) / nth) - ev_off;
+    part[static_cast<size_t>(t)] =
+        cov_sum_reads(w0, w1, ev_off, lens, lo, hi, reso, o0, o1);
+  };
+  std::vector<std::thread> threads;
+  for (int t = 1; t < nth; t++) threads.emplace_back(work, t);
+  work(0);
+  for (auto& th : threads) th.join();
+  int64_t sum = 0;
+  for (int64_t p : part) sum += p;
+  return sum;
+}
+
+// Σcov of read-grouped events held by the caller.
+int64_t raftio_cov_sum(const int32_t* w0, const int32_t* w1,
+                       const int64_t* ev_off, const int64_t* lens,
+                       int64_t n_reads, int32_t reso) {
+  return cov_sum_threaded(w0, w1, ev_off, lens, n_reads, reso, nullptr,
+                          nullptr);
+}
+
+// The grouping's arrays copied out to the caller's off [n+1], w0 and w1
+// [m], and its Σcov, summed in the same threaded pass: the accessor
+// beside rge_n_unknown and rge_n_oob that hands the grouping over.
+int64_t rge_export(RaftGroupedEv* g, const int64_t* lens, int32_t reso,
+                   int64_t* off, int32_t* w0, int32_t* w1) {
+  const int64_t n = static_cast<int64_t>(g->off.size()) - 1;
+  std::memcpy(off, g->off.data(), g->off.size() * sizeof(int64_t));
+  return cov_sum_threaded(g->w0.data(), g->w1.data(), g->off.data(), lens,
+                          n, reso, w0, w1);
+}
+
 // coverage.txt: "read {i} " + "{w*reso},{cov} " per window + "\n"
 // cov values for read i are cov[cov_off[i] .. cov_off[i+1])
 int raftio_emit_coverage(const char* path, const int32_t* cov,

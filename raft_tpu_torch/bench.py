@@ -106,12 +106,11 @@ def headline_dataset(work: str, n_reads: int) -> tuple[str, str]:
                        n_reads=n_reads, n_overlaps=n_reads * 30, est_cov=20)
 
 
-def headline_buckets(reads: str, paf: str):
-    """The dataset's buckets as ``compute_torch`` makes them (grouped
-    events, ``est_cov`` 20): (params, list of buckets), or None without
-    the native grouped events."""
+def headline_table(reads: str, paf: str):
+    """The dataset's read-grouped events as ``compute_torch`` groups them
+    (``est_cov`` 20): (params, int32 read lengths, the grouped triple),
+    or None without the native grouped events."""
     import numpy as np
-    from raft_tpu_torch import bucketing
     from raft_tpu_torch.io.fasta import load_reads
     from raft_tpu_torch.io.paf import load_paf
     from raft_tpu_torch.params import AlgoParams
@@ -120,8 +119,19 @@ def headline_buckets(reads: str, paf: str):
     params = AlgoParams(est_cov=20)
     lens = store.lens.astype(np.int32)
     g = table.events_grouped(store.n_reads, lens, params.reso)
-    if g is None:
+    return None if g is None else (params, lens, g)
+
+
+def headline_buckets(reads: str, paf: str):
+    """The dataset's buckets as ``raft_tpu``'s engine makes them
+    (``bucketing.iter_buckets`` over ``headline_table``'s events):
+    (params, list of buckets), or None without the native grouped
+    events."""
+    from raft_tpu_torch import bucketing
+    got = headline_table(reads, paf)
+    if got is None:
         return None
+    params, lens, g = got
     return params, list(bucketing.iter_buckets(lens, None, None, None,
                                                params.reso, prebinned=g))
 

@@ -158,27 +158,40 @@ def _reserve(path: str, nbytes: int, verbose: bool) -> int:
 
 class Reservation:
     """A plain output file's extent, reserved on a pool thread (span
-    ``emit.reserve``, ``native.reserve``) while the run computes, so that
-    its writer's calls only copy. ``nbytes`` need only be close: the
-    writer cuts the file to the output's size, and writes past the
-    reserved range allocate as they would have. The writer takes it
-    (``claim``: the bytes reserved, 0 where nothing was) and from then on
-    leaves no reserved byte behind, written or failed; ``release``, in
-    the run's cleanup, truncates to 0 bytes a reservation no writer
-    took, so a run that fails before its writer leaves no file of NULs."""
+    ``emit.reserve``, attribute ``early``; ``native.reserve``) while the
+    run parses and computes, so that its writer's calls only copy.
+    ``nbytes`` need only be close: the writer cuts the file to the
+    output's size, and writes past the reserved range allocate as they
+    would have. The writer takes it (``claim``: the bytes reserved, 0
+    where nothing was) and from then on leaves no reserved byte behind,
+    written or failed; ``release``, in the run's cleanup, undoes a
+    reservation no writer took, so a run that fails before its writer
+    leaves no file of NULs: a file the reservation created is removed,
+    one it found is cut to 0 bytes."""
 
-    def __init__(self, pool, path: str, nbytes: int, verbose: bool):
+    def __init__(self, pool, path: str, nbytes: int, verbose: bool,
+                 early: bool = False):
         self.path = path
         self.claimed = False
-        self._fut = pool.submit(profiling.bind(_reserve, "emit.reserve"),
-                                path, nbytes, verbose)
+        self.created = not os.path.lexists(path)
+        self._fut = pool.submit(
+            profiling.bind(_reserve, "emit.reserve", early=int(early)),
+            path, nbytes, verbose)
 
     def claim(self) -> int:
         self.claimed = True
         return self._fut.result()
 
     def release(self) -> None:
-        if not self.claimed and self._fut.result():
+        if self.claimed:
+            return
+        reserved = self._fut.result()
+        if self.created:
+            try:
+                os.unlink(self.path)
+            except FileNotFoundError:
+                pass
+        elif reserved:
             os.truncate(self.path, 0)
 
 

@@ -43,7 +43,7 @@ from raft_tpu_torch.io.fasta import ReadStore
 from raft_tpu_torch.io.paf import OverlapTable
 from raft_tpu_torch.params import AlgoParams
 from raft_tpu_torch.result import ComputeResult
-from raft_tpu_torch.ops import pileup_cuda, scan_chop_cuda
+from raft_tpu_torch.ops import gather_cuda, pileup_cuda, scan_chop_cuda
 from raft_tpu_torch.ops.pileup_cuda import decode_events, ev_bits_w0, pileup
 from raft_tpu_torch.ops.scan_chop_cuda import scan_chop
 
@@ -389,6 +389,58 @@ def _validate_events(lens, ev_read, ev_lo, ev_hi, reso):
             "fix the PAF or run with --no-strict")
 
 
+def _group_events(ev_read, ev_lo, ev_hi, n: int, reso: int):
+    """Ungrouped events → the read-grouped, window-binned triple of
+    ``OverlapTable.events_grouped`` (ev_off int64 [n+1], w0, w1 int32
+    [m]), by a stable sort on the read ids: what the native counting sort
+    gives, where it is missing."""
+    order = np.argsort(ev_read, kind="stable")
+    ev_read = ev_read[order]
+    ev_lo = ev_lo[order]
+    ev_hi = ev_hi[order]
+    return (np.searchsorted(ev_read, np.arange(n + 1)).astype(np.int64),
+            (ev_lo.astype(np.int64) // reso).astype(np.int32),
+            np.where(ev_hi < 0, -1,
+                     ev_hi.astype(np.int64) // reso).astype(np.int32))
+
+
+def cov_sum(ev_off, w0, w1, lens, reso: int) -> int:
+    """Σcov, the coverage summed over every window, from read-grouped
+    window-binned events with the coverage renderer's clamp semantics (an
+    event counts iff w1 >= w0 and 0 <= w0 < its read's windows, w1
+    clamped to the last window): one native pass (``native.cov_sum``),
+    else numpy's closed form, where the native library is missing."""
+    from raft_tpu_torch.io import native
+    total = native.cov_sum(w0, w1, ev_off, lens, reso)
+    if total is not None:
+        return total
+    nwr = np.repeat(-(-np.asarray(lens, np.int64) // reso), np.diff(ev_off))
+    valid = (w1 >= w0) & (w0 >= 0) & (w0 < nwr)
+    return int(np.where(
+        valid, np.minimum(w1.astype(np.int64), nwr - 1) - w0 + 1, 0).sum())
+
+
+def plan_steps(lens: np.ndarray, ev_counts: np.ndarray, params: AlgoParams,
+               n_shards: int = 1, cov_out: str | None = None):
+    """The device steps of a pass, from the read lengths and per-read
+    event counts alone: for each bucket of ``bucketing.plan_buckets``, its
+    ``BucketShape``, the ``StaticCfg`` of one shard and per shard
+    (``parallel.mesh.shard_rows``' layout where ``n_shards`` > 1) the
+    ``gather_cuda.Step`` whose gathered inputs equal ``host_inputs`` of
+    ``iter_buckets``' bucket (``shard_bucket``'s shard)."""
+    from raft_tpu_torch.parallel.mesh import shard_rows
+    for shape in bucketing.plan_buckets(lens, ev_counts, params.reso):
+        rows = (shard_rows(shape.read_ids, shape.B,
+                           ev_counts[shape.read_ids], n_shards)
+                if n_shards > 1 else [(shape.read_ids, shape.B, shape.E)])
+        cfg = derive_cfg(rows[0][1], shape.W, rows[0][2], params,
+                         cov_out=cov_out)
+        trunc16 = bucketing.event_dtype(shape.B, shape.W) == np.int16
+        yield shape, cfg, [
+            gather_cuda.Step(rids, B, E, cfg.W, cfg.ev_pack == 0, trunc16)
+            for rids, B, E in rows]
+
+
 def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
                   strict: bool = True, cov_out: str | None = None,
                   on_cov_events=None,
@@ -398,31 +450,43 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     """Torch engine: buckets through ``device_step`` on ``device``, flat
     ComputeResult out — the counterpart of ``engine_jax.compute_jax``.
 
+    The events come read-grouped and window-binned (the native counting
+    sort of ``OverlapTable.events_grouped``, else a sort here). The host
+    partitions the reads into buckets from the read lengths and per-read
+    event counts alone (``bucketing.plan_buckets``), copies the grouped
+    table to the device once, and one gather (``ops.gather_cuda``: the
+    kernel on a card, its plain twin on the CPU) writes every bucket's
+    device inputs there, the arrays ``host_inputs`` would build. Each
+    bucket is then one ``device_step`` on the current stream and its D2H
+    copies: the packed array alone in ``host`` mode, plus the ``[B, W]``
+    diff or coverage in ``diff8`` / ``cov`` mode (``cov_out``, default
+    ``RAFT_COV_OUT`` or ``host``). In ``host`` mode ``.coverage.txt``
+    renders from the window-binned events, which ``on_cov_events``
+    receives with Σcov before any device work (the native grouping's
+    ``cov_sum``, else ``cov_sum`` here); in the other two it never fires,
+    and the result carries ``cov_flat``.
+
     ``devices`` (a list of torch devices, the counterpart of ``mesh=``)
     shards every bucket over them as contiguous row ranges
-    (``parallel.mesh.shard_bucket`` and ``sharded_device_step``) and
-    takes the place of ``device``; the result is the same. Every bucket
-    goes through ``sharded_device_step``, over ``[device]`` when no
-    devices are given, so the stage timers mean one thing either way:
-    ``h2d`` ends when every shard's inputs are on its device, ``step``
-    holds the device steps, their D2H and the host's ``diff8`` rebuild.
-
-    Each bucket is one H2D copy, one ``device_step`` on the current
-    stream and its D2H copies: the packed array alone in ``host`` mode,
-    plus the ``[B, W]`` diff or coverage in ``diff8`` / ``cov`` mode
-    (``cov_out``, default ``RAFT_COV_OUT`` or ``host``). In ``host`` mode
-    ``.coverage.txt`` renders from the window-binned events, which
-    ``on_cov_events`` receives before any device work; in the other two
-    it never fires, and the result carries ``cov_flat``.
+    (``parallel.mesh.shard_rows``, ``shard_bucket``'s layout) and takes
+    the place of ``device``; the result is the same. Each distinct device
+    gets its own copy of the table and gathers its own shards, in one
+    launch; ``parallel.mesh.run_shards`` runs each bucket's shards.
 
     The host stages are back-to-back spans ``engine.<stage>``, children of
     the caller's open span (``profiling.Marks``): ``events`` (``sort``
-    where the events come ungrouped), ``cov_events``, then per bucket
-    ``bucket_prep``, ``h2d`` and ``step`` (attributes ``B``, ``W``,
-    ``E``, and ``pileup_regime`` and ``scan_chop_regime``: the launch
-    plans' regimes, 0 where the plain twins run), then ``integrate``; with
-    the counters ``engine.events``, ``engine.windows``, ``engine.buckets``
-    (device steps, one per bucket and shard), ``engine.h2d_bytes``,
+    where the events come ungrouped), ``cov_events``, ``bucket_prep``
+    (the partition; attribute ``buckets``), ``h2d`` (attribute ``table``
+    = 1: the table's copies and the gather's launch), then per bucket
+    ``step`` (attributes ``B``, ``W``, ``E``, and ``pileup_regime`` and
+    ``scan_chop_regime``: the launch plans' regimes, 0 where the plain
+    twins run: the device steps, their D2H and the host's ``diff8``
+    rebuild), then ``integrate``; with the counters ``engine.events``,
+    ``engine.windows``, ``engine.buckets`` (device steps, one per bucket
+    and shard), ``engine.table_bytes`` (the table's copies),
+    ``engine.h2d_bytes`` (every H2D byte: the table and the gather's
+    plan), ``engine.gather.buckets`` (device steps whose inputs the
+    gather wrote), ``engine.gather.bytes`` (those inputs' bytes),
     ``engine.d2h_bytes``, ``engine.fragments``, ``engine.cut_reads``
     (reads cut into more than one fragment) and ``engine.repeats``, and
     over the buckets wider than ``WIDE_W`` windows (``_wide_counts``)
@@ -432,7 +496,7 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     ``grouped`` is an already-computed ``events_grouped`` triple
     (``--auto-e`` reuses its pass).
     ``on_bucket(cfg, lens, ev_off, ev_pk)`` sees each bucket's device
-    inputs after the H2D, before its ``device_step``; with ``devices``
+    inputs after the gather, before its ``device_step``; with ``devices``
     it sees each shard's, with the per-shard ``cfg``, so it fires once
     per pileup launch."""
     mode = cov_out or default_cov_out()
@@ -440,7 +504,6 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         raise ValueError(f"cov_out={mode!r}: must be one of "
                          f"{', '.join(COV_OUT_MODES)}")
     ev_backed = mode == "host"
-    device = torch.device(device)
     marks = profiling.Marks("engine.", want=timers_out is not None)
     mark = marks.mark
 
@@ -454,41 +517,25 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         if eg is not None:
             grouped = eg(n, lens, reso, strict=strict)
     if grouped is not None:
-        ev_off_g, w0s, w1s = grouped
-        ev_read = ev_lo = ev_hi = None
         mark("events")
     else:
         ev_read, ev_lo, ev_hi = table.events(n, strict=strict)
         if strict:
             _validate_events(lens, ev_read, ev_lo, ev_hi, reso)
         mark("events")
-        order = np.argsort(ev_read, kind="stable")
-        ev_read = ev_read[order]
-        ev_lo = ev_lo[order]
-        ev_hi = ev_hi[order]
+        grouped = _group_events(ev_read, ev_lo, ev_hi, n, reso)
         mark("sort")
-    prebinned = (ev_off_g, w0s, w1s) if grouped is not None else None
-    profiling.count("engine.events",
-                    len(w0s) if grouped is not None else len(ev_read))
+    ev_off_g, w0s, w1s = grouped
+    profiling.count("engine.events", len(w0s))
     profiling.count("engine.windows", int(nw_all.sum()))
 
     cov_off = _cumsum0(nw_all)
     if ev_backed:
         # event-backed coverage: everything .coverage.txt needs is known
-        # now; Σcov is closed-form with the renderer's clamp semantics
-        if grouped is not None:
-            nwr = np.repeat(nw_all, np.diff(ev_off_g))
-        else:
-            w0s = (ev_lo.astype(np.int64) // reso).astype(np.int32)
-            w1s = np.where(ev_hi < 0, -1,
-                           ev_hi.astype(np.int64) // reso).astype(np.int32)
-            ev_off_g = np.searchsorted(ev_read,
-                                       np.arange(n + 1)).astype(np.int64)
-            nwr = nw_all[ev_read]
-        valid = (w1s >= w0s) & (w0s >= 0) & (w0s < nwr)
-        total_cov = int(np.where(
-            valid, np.minimum(w1s.astype(np.int64), nwr - 1) - w0s + 1,
-            0).sum())
+        # now, Σcov included (the native grouping's, else one pass here)
+        total_cov = getattr(grouped, "cov_sum", None)
+        if total_cov is None:
+            total_cov = cov_sum(ev_off_g, w0s, w1s, lens, reso)
         cov_flat = None
         if on_cov_events is not None:
             z32 = np.empty(0, np.int32)
@@ -502,31 +549,47 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
                 cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g))
         mark("cov_events")
     else:
-        w0s = w1s = ev_off_g = None
         cov_flat = np.empty(int(cov_off[-1]), dtype=np.int32)
 
-    from raft_tpu_torch.parallel.mesh import shard_bucket, sharded_device_step
-    devices = devices or [device]
+    from raft_tpu_torch.parallel.mesh import run_shards
+    devices = [torch.device(d) for d in (devices or [device])]
     n_shards = len(devices)
-    step = sharded_device_step(devices)
+    # the partition on the host, from n-sized arrays; each device's steps
+    # (a bucket, or its shard there) for the gather
+    buckets = []
+    steps: dict = {d: [] for d in devices}
+    for shape, cfg, shard_steps in plan_steps(
+            lens, np.diff(ev_off_g), params, n_shards, mode):
+        where = []
+        for dev, st in zip(devices, shard_steps):
+            where.append((dev, len(steps[dev])))
+            steps[dev].append(st)
+        buckets.append((shape, cfg, where))
+    mark("bucket_prep", buckets=len(buckets))
+
+    # one copy of the table per device, one gather launch per device
+    gathered = {}
+    for dev, dev_steps in steps.items():
+        if not dev_steps:
+            continue
+        tab, nbytes = gather_cuda.upload_table(ev_off_g, w0s, w1s, lens, dev)
+        plan = gather_cuda.GatherPlan(dev_steps)
+        gathered[dev] = (gather_cuda.gather(tab, plan), plan, tab)
+        profiling.count("engine.table_bytes", nbytes)
+        profiling.count("engine.h2d_bytes", nbytes + plan.meta.nbytes)
+        profiling.count("engine.gather.buckets", len(dev_steps))
+        profiling.count("engine.gather.bytes", sum(
+            plan.out_bytes(i) for i in range(len(dev_steps))))
+    mark("h2d", table=1)
+
     # what only the recording reads is worked out only while it records
     recording = profiling.recording() is not None
     wide = dict.fromkeys(WIDE_COUNTS, 0) if recording else None
     outs = []
-    for bk in bucketing.iter_buckets(lens, ev_read, ev_lo, ev_hi, reso,
-                                     presorted=True, prebinned=prebinned):
-        if n_shards > 1:
-            bk = shard_bucket(bk, n_shards)
-        # cfg describes ONE shard
-        cfg = derive_cfg(bk.B // n_shards, bk.W, bk.E // n_shards, params,
-                         cov_out=mode)
-        shape = dict(B=cfg.B, W=cfg.W, E=cfg.E)
-        mark("bucket_prep", **shape)
-        args = host_inputs(bk, cfg)
-        host = step(*args, cfg=cfg, on_bucket=on_bucket,
-                    on_h2d=lambda: mark("h2d", **shape))
+    for shape, cfg, where in buckets:
+        host = run_shards([gather_cuda.views(*gathered[dev][:2], i)
+                           for dev, i in where], cfg, on_bucket)
         profiling.count("engine.buckets", n_shards)
-        profiling.count("engine.h2d_bytes", sum(a.nbytes for a in args))
         profiling.count("engine.d2h_bytes", sum(
             v.nbytes for v in host.values() if isinstance(v, np.ndarray)))
         out = unpack_out(host["packed"], cfg)
@@ -537,16 +600,17 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
                 # a window gained or lost more than int8 holds, so the
                 # diff wrapped on these rows: rebuild them exactly from
                 # the bucket's own events
-                _host_cov_rows(bk, n_shards, bad, cov)
+                _host_cov_rows(shape, bad, cov, grouped)
             out["cov"] = cov
         elif "cov" in host:
             out["cov"] = host["cov"]
-        if recording and bk.W > WIDE_W:
-            for k, v in _wide_counts(bk, n_shards, out, nw_all).items():
+        if recording and shape.W > WIDE_W:
+            for k, v in _wide_counts(shape, n_shards, out, nw_all,
+                                     grouped).items():
                 wide[k] += v
-        mark("step", **shape, **(_regimes(cfg, devices[0]) if recording
-                                 else {}))
-        outs.append((bk, out))
+        mark("step", B=cfg.B, W=cfg.W, E=cfg.E,
+             **(_regimes(cfg, devices[0]) if recording else {}))
+        outs.append((shape, out))
 
     # global offsets in read-id order
     rep_n_all = np.zeros(n, dtype=np.int64)
@@ -591,6 +655,8 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         frag_read[d_idx] = np.repeat(rid, cnt)
         frag_wh[d_idx] = np.repeat(out["whole"][:nu], cnt)
 
+    if not ev_backed:
+        total_cov = int(cov_flat.sum(dtype=np.int64))
     mark("integrate")
     if recording:
         profiling.count("engine.fragments", n_frags)
@@ -606,12 +672,13 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         rep_s=rep_s, rep_e=rep_e, rep_off=rep_off,
         frag_read=frag_read, frag_char_start=frag_cs,
         frag_char_len=frag_cl, frag_whole=frag_wh,
-        total_coverage=(total_cov if ev_backed
-                        else int(cov_flat.sum(dtype=np.int64))),
+        total_coverage=total_cov,
         total_windows=int(nw_all.sum()),
         total_repeat_length=total_rep_len,
         total_read_length=int(lens.astype(np.int64).sum()),
-        cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g,
+        cov_ev_w0=w0s if ev_backed else None,
+        cov_ev_w1=w1s if ev_backed else None,
+        cov_ev_off=ev_off_g if ev_backed else None,
     )
 
 
@@ -629,47 +696,46 @@ def _regimes(cfg: StaticCfg, device) -> dict:
             cfg.B, cfg.W, cfg.M, cfg.K, cfg.F, sms).regime)
 
 
-def _wide_counts(bk, n_shards: int, out: dict, nw_all: np.ndarray) -> dict:
+def _slab_events(shape: bucketing.BucketShape, grouped, rids=None):
+    """The events of a bucket's reads (``rids``, default all of its rows'),
+    as its int16 or int32 event columns hold them: (w0, w1) int64 and each
+    event's index among ``rids``."""
+    ev_off, w0s, w1s = grouped
+    rids = shape.read_ids if rids is None else rids
+    start = ev_off[rids]
+    cnt = ev_off[np.asarray(rids) + 1] - start
+    src, _ = _slab_copy_idx(cnt, start, _cumsum0(cnt)[:-1])
+    dt = bucketing.event_dtype(shape.B, shape.W)
+    return (w0s[src].astype(dt).astype(np.int64),
+            w1s[src].astype(dt).astype(np.int64),
+            np.repeat(np.arange(len(cnt)), cnt))
+
+
+def _wide_counts(shape: bucketing.BucketShape, n_shards: int, out: dict,
+                 nw_all: np.ndarray, grouped) -> dict:
     """A wide bucket's share of the ``engine.wide.*`` counters, from its
     reads, not its padded shape: device steps, reads, their windows
     (ceil(length / r) each), the valid events it ships (``pack_events``'
     rule), and the repeats and fragments read back from its packed rows."""
-    nu = bk.n_used
-    w0 = bk.ev_w0.astype(np.int64)
-    w1 = bk.ev_w1.astype(np.int64)
+    nu = shape.n_used
+    w0, w1, _ = _slab_events(shape, grouped)
     return {"buckets": n_shards, "reads": nu,
-            "windows": int(nw_all[bk.read_ids].sum()),
-            "events": int(((w1 >= w0) & (w0 >= 0) & (w0 < bk.W)).sum()),
+            "windows": int(nw_all[shape.read_ids].sum()),
+            "events": int(((w1 >= w0) & (w0 >= 0) & (w0 < shape.W)).sum()),
             "repeats": int(out["rep_n"][:nu].astype(np.int64).sum()),
             "fragments": int(out["n_frag"][:nu].astype(np.int64).sum())}
 
 
-def _bucket_global_rows(bk, n_shards: int) -> np.ndarray:
-    """Event → global bucket row. Sharded buckets store shard-local row
-    ids per event slab; map them back (pad sentinel → bk.B)."""
-    rows = np.asarray(bk.ev_row, dtype=np.int64)
-    if n_shards > 1:
-        B_local = bk.B // n_shards
-        E_s = bk.E // n_shards
-        slab = np.arange(len(rows), dtype=np.int64) // E_s
-        rows = np.where(rows >= B_local, bk.B, slab * B_local + rows)
-    return rows
-
-
-def _host_cov_rows(bk, n_shards: int, bad: np.ndarray,
-                   cov: np.ndarray) -> None:
+def _host_cov_rows(shape: bucketing.BucketShape, bad: np.ndarray,
+                   cov: np.ndarray, grouped) -> None:
     """Recompute int32 coverage for rows ``bad`` of a bucket from its own
     events (the same diff+cumsum the device runs, repeat.hpp:62-77
-    semantics) and write them into ``cov`` in place."""
+    semantics) and write them into ``cov`` in place. Rows are the
+    bucket's, sharded or not: shards are contiguous row ranges."""
     W = cov.shape[1]
-    rows = _bucket_global_rows(bk, n_shards)
-    w0 = np.asarray(bk.ev_w0, dtype=np.int64)
-    w1 = np.asarray(bk.ev_w1, dtype=np.int64)
-    sel = (np.isin(rows, bad) & (w1 >= w0)
-           & (w0 >= 0) & (w0 <= W) & (w1 + 1 <= W))
-    remap = np.full(int(bk.B) + 1, -1, dtype=np.int64)
-    remap[bad] = np.arange(len(bad))
-    r = remap[rows[sel]]
+    w0, w1, r = _slab_events(shape, grouped, shape.read_ids[bad])
+    sel = (w1 >= w0) & (w0 >= 0) & (w0 <= W) & (w1 + 1 <= W)
+    r = r[sel]
     d = np.zeros((len(bad), W + 1), dtype=np.int32)
     np.add.at(d, (r, w0[sel]), 1)
     np.add.at(d, (r, w1[sel] + 1), -1)

@@ -203,6 +203,14 @@ def _configure(lib):
         C.c_void_p]              # stats (int64 [6] or NULL)
     lib.raftio_reserve.restype = C.c_int
     lib.raftio_reserve.argtypes = [C.c_char_p, C.c_int64]
+    lib.raftio_cov_sum.restype = C.c_int64
+    lib.raftio_cov_sum.argtypes = [
+        i32p, i32p, i64p, i64p,        # w0, w1, ev_off, lens
+        C.c_int64, C.c_int32]          # n_reads, reso
+    lib.rge_export.restype = C.c_int64
+    lib.rge_export.argtypes = [
+        C.c_void_p, i64p, C.c_int32,   # grouping, lens, reso
+        i64p, i32p, i32p]              # off, w0, w1 out
     lib.raftio_emit_coverage.restype = C.c_int
     lib.raftio_emit_coverage.argtypes = [
         C.c_char_p, i32p, i64p, C.c_int64, C.c_int32, C.c_int64, C.c_int,
@@ -466,8 +474,9 @@ def group_events(table, n_reads: int, lens: np.ndarray, reso: int):
     """Read-grouped, window-binned coverage events from an OverlapTable's
     columns in one native counting-sort pass (replaces events() +
     argsort + binning on the hot path). Returns
-    (ev_off int64 [n+1], w0 int32 [m], w1 int32 [m], n_unknown, n_oob)
-    or None when the native library is unavailable."""
+    (ev_off int64 [n+1], w0 int32 [m], w1 int32 [m], n_unknown, n_oob,
+    cov_sum) or None when the native library is unavailable; ``cov_sum``
+    is Σcov (``cov_sum``'s), summed as the arrays are copied out."""
     lib = _get_lib()
     if lib is None:
         return None
@@ -484,11 +493,12 @@ def group_events(table, n_reads: int, lens: np.ndarray, reso: int):
         m = int(lib.rge_n(ptr))
         # copies: the views must not outlive the C allocation (the result
         # arrays travel in ComputeResult past this scope)
-        off = _as_array(lib.rge_off(ptr), n_reads + 1, np.int64).copy()
-        w0 = _as_array(lib.rge_w0(ptr), m, np.int32).copy()
-        w1 = _as_array(lib.rge_w1(ptr), m, np.int32).copy()
+        off = np.empty(n_reads + 1, np.int64)
+        w0 = np.empty(m, np.int32)
+        w1 = np.empty(m, np.int32)
+        cov = int(lib.rge_export(ptr, lens64, int(reso), off, w0, w1))
         return (off, w0, w1, int(lib.rge_n_unknown(ptr)),
-                int(lib.rge_n_oob(ptr)))
+                int(lib.rge_n_oob(ptr)), cov)
     finally:
         lib.raftio_free_grouped(ptr)
 
@@ -521,6 +531,23 @@ def cov_hist(w0: np.ndarray, w1: np.ndarray, ev_off: np.ndarray,
     rc = lib.raftio_cov_hist(w0, w1, ev_off, lens64, int(n), int(reso),
                              hist, int(hist_len))
     return hist if rc == 0 else None
+
+
+def cov_sum(w0: np.ndarray, w1: np.ndarray, ev_off: np.ndarray,
+            lens: np.ndarray, reso: int) -> int | None:
+    """Σcov, the coverage summed over every window of every read, from
+    read-grouped window-binned events in one native pass
+    (``raftio_cov_sum``: the coverage renderer's clamp semantics), or
+    None when the native library is unavailable."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    lens64 = np.ascontiguousarray(lens, dtype=np.int64)
+    return int(lib.raftio_cov_sum(
+        np.ascontiguousarray(w0, dtype=np.int32),
+        np.ascontiguousarray(w1, dtype=np.int32),
+        np.ascontiguousarray(ev_off, dtype=np.int64), lens64,
+        len(lens64), int(reso)))
 
 
 class PafBins:

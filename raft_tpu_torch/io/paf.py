@@ -1,7 +1,8 @@
 """PAF overlap loading into columnar int32 arrays.
 
 raft_tpu_torch's copy of ``raft_tpu/io/paf.py``, unchanged apart from
-its import paths.
+its import paths and ``GroupedEvents``: ``events_grouped``' triple also
+carries the native grouping's Σcov.
 
 Equivalent of the reference PAF reader + pileup builder
 (``/root/reference/paf.hpp:50-100``, ``chop.hpp:133-191``), redesigned:
@@ -86,7 +87,8 @@ class OverlapTable:
     def events_grouped(self, n_reads: int, lens: np.ndarray, reso: int,
                        strict: bool = True):
         """Read-grouped window-binned events via the native counting-sort
-        pass: (ev_off [n+1] int64, w0 [m] int32, w1 [m] int32). Replaces
+        pass: (ev_off [n+1] int64, w0 [m] int32, w1 [m] int32), as a
+        ``GroupedEvents`` that also carries the pass's Σcov. Replaces
         events() + argsort + binning on the hot path — same event rules,
         same strict-mode errors. Returns None when the native library is
         unavailable (callers fall back to the sort path)."""
@@ -97,7 +99,7 @@ class OverlapTable:
             return None
         if g is None:
             return None
-        off, w0, w1, n_unknown, n_oob = g
+        off, w0, w1, n_unknown, n_oob, cov = g
         if strict and n_unknown:
             raise ValueError(
                 f"PAF names {n_unknown} read(s) absent from the input "
@@ -108,7 +110,18 @@ class OverlapTable:
                 "overlap interval exceeds read bounds (reference RAFT has "
                 "an unchecked buffer overrun here, repeat.hpp:69-73); "
                 "fix the PAF or run with --no-strict")
-        return off, w0, w1
+        return GroupedEvents(off, w0, w1, cov)
+
+
+class GroupedEvents(tuple):
+    """``(ev_off, w0, w1)`` of ``OverlapTable.events_grouped``, with
+    ``cov_sum``: Σcov, the coverage summed over every window, from the
+    native grouping (the port's addition; the triple is ``raft_tpu``'s)."""
+
+    def __new__(cls, ev_off, w0, w1, cov_sum: int):
+        self = super().__new__(cls, (ev_off, w0, w1))
+        self.cov_sum = cov_sum
+        return self
 
 
 def load_paf(path: str, store: ReadStore,

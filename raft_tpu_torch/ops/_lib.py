@@ -1,8 +1,9 @@
 """The port's CUDA kernel library: every ``csrc/*.cu`` compiled by ``nvcc``
 (one process per source, all started together) and linked into one
 ``_build/libraft_kernels.so`` with a plain C interface, loaded with
-ctypes, for the wrappers ``ops/pileup_cuda.py`` (``raft_pileup``) and
-``ops/scan_chop_cuda.py`` (``raft_scan_chop``).
+ctypes, for the wrappers ``ops/pileup_cuda.py`` (``raft_pileup``),
+``ops/scan_chop_cuda.py`` (``raft_scan_chop``) and ``ops/gather_cuda.py``
+(``raft_gather``).
 
 The build runs at the first CUDA call, never at import, and again
 whenever a source is newer than the library.
@@ -36,10 +37,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "raft_pileup": [_P] * 3 + [_I] * 12 + [_P],
     "raft_scan_chop": [_P] * 5 + [_I] * 24 + [_P],
+    "raft_gather": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 # The kernels by the names their wrappers count launches under.
-KERNELS = ("pileup", "scan_chop")
+KERNELS = ("pileup", "scan_chop", "gather")
 launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None

@@ -33,6 +33,7 @@ import concurrent.futures as cf
 import dataclasses
 import json
 import os
+import stat
 import sys
 import types
 from collections import deque
@@ -191,6 +192,27 @@ def _validate_inputs(read_path: str, paf_path: str) -> None:
             print(f"ERROR, break_long_reads(), {p} input file either does "
                   "not exist or is empty")
             raise SystemExit(1)
+
+
+def _reserve_early(read_path: str, out_path: str) -> bool:
+    """Whether the FASTA's reservation may start before the parse: the
+    reads are a plain FASTA (first byte ``>``: not FASTQ, gz or BGZF), so
+    their file's size bounds the output's bases from above, and the
+    output path is absent or an empty regular file, so that a failed run
+    leaves it as it was."""
+    try:
+        with open(read_path, "rb") as f:
+            if f.read(1) != b">":
+                return False
+    except OSError:
+        return False
+    try:
+        st = os.stat(out_path)
+    except FileNotFoundError:
+        return True
+    except OSError:
+        return False
+    return stat.S_ISREG(st.st_mode) and st.st_size == 0
 
 
 def compute_oracle(store: ReadStore, table: OverlapTable,
@@ -529,10 +551,13 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
     """Whole-file schedule: parse, one ``compute``, then the four writers
     side by side, each a span ``emit.<file>`` on its pool thread (the
     coverage writer's may start inside ``compute``), under the ``emit``
-    stage, which is the main thread's wait on them. A plain FASTA's extent
-    is reserved once the reads are loaded (``emit.Reservation``, span
-    ``emit.reserve``), beside ``load_paf`` and ``compute``: at least its
-    bases and a newline a read."""
+    stage, which is the main thread's wait on them. A plain output
+    FASTA's extent is reserved beside the parse and ``compute``
+    (``emit.Reservation``, span ``emit.reserve``): from the start, sized
+    by the input file, where the reads are a plain FASTA and the output
+    is absent or empty (``_reserve_early``; attribute ``early`` 1); else
+    once the reads are loaded, sized by their bases and a newline a read
+    (``early`` 0)."""
     (params.replace(est_cov=1) if auto_e else params).validate()
     _validate_inputs(read_path, paf_path)
     stats = TorchRunStats()
@@ -547,11 +572,18 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
     side_pool = cf.ThreadPoolExecutor(max_workers=2)
     cov_fut: list = []
     reservation = None
+    fasta_out = prefix + ".reads.fasta"
+    reserve = un and not gz_out
+    if reserve and _reserve_early(read_path, fasta_out):
+        # a plain FASTA holds at least its bases and a newline a read
+        reservation = emit.Reservation(side_pool, fasta_out,
+                                       os.path.getsize(read_path), verbose,
+                                       early=True)
 
     def _reserve_fasta(store):
         nonlocal reservation
         reservation = emit.Reservation(
-            side_pool, prefix + ".reads.fasta",
+            side_pool, fasta_out,
             int(store.lens.sum(dtype=np.int64)) + store.n_reads, verbose)
 
     def _write_coverage(pool, res):
@@ -562,7 +594,8 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
     try:
         store, table = load_inputs(
             read_path, paf_path, stats, use_native, verbose,
-            on_reads=_reserve_fasta if un and not gz_out else None)
+            on_reads=(_reserve_fasta if reserve and reservation is None
+                      else None))
         if verbose:
             print(f"INFO, Symmetric overlaps {int(table.symmetric)} ")
             print(f"INFO, length of alignments  {table.n_rows}()")

@@ -1,26 +1,30 @@
 """Mirrors raft_tpu/tools/bench_fetch.py: the transfer decomposition of
 the engine's per-bucket loop on the card.
 
-``compute_torch`` spends its ``h2d`` and ``step`` stages moving bucket
-inputs to the card and packed results back (pageable copies, one bucket
-at a time). This tool separates that wall into its physical parts, on
+``compute_torch`` once spent its ``h2d`` and ``step`` stages moving
+bucket inputs to the card and packed results back (pageable copies, one
+bucket at a time); since its inputs are gathered on the card from one
+copy of the event table (``ops.gather_cuda``), only the D2H half of that
+is the engine's. This tool separates that wall into its physical parts, on
 the workload of the headline benchmark (``cov_out="host"``: the packed
 ``[B, 2K+2F+5]`` int32 array is the only D2H):
 
 * ``rpc_floor_ms``   — D2H of a 4-byte tensor (the copy's fixed cost)
 * ``bw_mb_s``        — D2H of one 8 MB tensor into pageable memory, as
                        ``compute_torch`` copies
-* ``h2d_bytes``, ``h2d_s``, ``h2d_mb_s`` — every bucket's inputs moved
-                       to the card as ``bucket_to_device`` moves them
+* ``h2d_bytes``, ``h2d_s``, ``h2d_mb_s`` — every bucket's inputs, built
+                       on the host (``host_inputs``), moved to the card
+                       array by array
 * ``exec_s``         — every bucket's ``device_step`` on inputs already
                        on the card, then one synchronize, no D2H
 * ``fetch_w{N}_s``   — D2H of every (already computed) packed output
                        with N threads
 * ``fetch_batched_s``— every D2H issued back to back (non-blocking), then
                        one synchronize
-* ``engine_like_s``  — ``compute_torch``'s per-bucket loop: H2D, step,
-                       D2H, bucket by bucket (the engine's own
-                       ``sharded_device_step`` over the one device)
+* ``engine_like_s``  — ``compute_torch``'s device path: the partition
+                       (``plan_steps``), the grouped table's copy, the
+                       gather, then step and D2H bucket by bucket
+                       (``run_shards`` over the one device)
 * ``n_buckets``, ``d2h_bytes``, ``d2h_floor_s`` (the D2H bytes over
                        ``bw_mb_s``)
 
@@ -44,8 +48,8 @@ import argparse
 import json
 import time
 
-from raft_tpu_torch.bench import (cuda_missing, env_reads, headline_buckets,
-                                  headline_dataset, work_dir)
+from raft_tpu_torch.bench import (cuda_missing, env_reads, headline_dataset,
+                                  headline_table, work_dir)
 
 
 def _best(fn, n: int = 3) -> float:
@@ -75,9 +79,14 @@ def main(argv=None) -> int:
 
     import concurrent.futures as cf
 
+    import numpy as np
+
+    from raft_tpu_torch import bucketing
     from raft_tpu_torch.engine_torch import (derive_cfg, device_step,
-                                             host_inputs, packed_width)
-    from raft_tpu_torch.parallel.mesh import sharded_device_step
+                                             host_inputs, packed_width,
+                                             plan_steps)
+    from raft_tpu_torch.ops import gather_cuda
+    from raft_tpu_torch.parallel.mesh import run_shards
 
     res = {"backend": a.device, "n_reads": a.n_reads,
            "device_name": (torch.cuda.get_device_name(dev)
@@ -92,11 +101,13 @@ def main(argv=None) -> int:
     res["bw_mb_s"] = round(8.0 * 2**20 / 1e6 / _best(big.cpu), 1)
 
     # --- real workload buckets ------------------------------------------
-    got = headline_buckets(reads, paf)
+    got = headline_table(reads, paf)
     if got is None:
         print(json.dumps({"error": "no native grouped events"}))
         return 1
-    params, buckets = got
+    params, lens, grouped = got
+    buckets = bucketing.iter_buckets(lens, None, None, None, params.reso,
+                                     prebinned=grouped)
     prepared = []
     d2h_bytes = h2d_bytes = 0
     for bk in buckets:
@@ -142,11 +153,16 @@ def main(argv=None) -> int:
     res["fetch_batched_s"] = _best(lambda: (
         [o.to("cpu", non_blocking=True) for o in outs], sync()))
 
-    # the engine's per-bucket loop: H2D, step, D2H, bucket by bucket
-    step = sharded_device_step([dev])
-
+    # the engine's device path: partition, the table's copy, one gather,
+    # then step and D2H bucket by bucket
     def engine_like():
-        return [step(*host, cfg=cfg) for cfg, host in prepared]
+        planned = list(plan_steps(lens, np.diff(grouped[0]), params,
+                                  cov_out="host"))
+        table, _ = gather_cuda.upload_table(*grouped, lens, dev)
+        plan = gather_cuda.GatherPlan([st for _, _, (st,) in planned])
+        arena = gather_cuda.gather(table, plan)
+        return [run_shards([gather_cuda.views(arena, plan, i)], cfg)
+                for i, (_, cfg, _) in enumerate(planned)]
 
     engine_like()
     res["engine_like_s"] = _best(engine_like)

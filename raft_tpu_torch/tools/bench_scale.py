@@ -55,7 +55,7 @@ OUT_EXTS = [".reads.fasta", ".coverage.txt", ".long_repeats.txt",
 def run_facts(st: dict) -> dict:
     """What a port run's ``--stats-json`` says of where it ran."""
     return {"devices": st.get("devices"), "n_buckets": len(st["buckets"]),
-            "launches": st.get("launches")}
+            "n_chunks": st.get("n_chunks"), "launches": st.get("launches")}
 
 
 def _run_ours(reads: str, paf: str, prefix: str, extra: list[str],

@@ -371,7 +371,8 @@ def test_reserved_fasta_outputs_equal(reserve_case, tmp_path, monkeypatch,
 def test_failure_before_the_writer_leaves_no_reserved_fasta(
         reserve_case, tmp_path, monkeypatch):
     """An exception in ``compute`` after the FASTA's extent was reserved
-    leaves the FASTA at 0 bytes, not a file of reserved NULs."""
+    leaves no FASTA, as ``raft_tpu`` leaves none: the file the
+    reservation created is removed, not left as reserved NULs."""
     reads, paf_path, _ = reserve_case
     fasta = str(tmp_path / "out.reads.fasta")
 
@@ -388,7 +389,45 @@ def test_failure_before_the_writer_leaves_no_reserved_fasta(
             reads, paf_path,
             _reserve_params(str(tmp_path), "out", pipeline.AlgoParams),
             device="cpu", verbose=False)
-    assert os.path.getsize(fasta) == 0
+    assert not os.path.exists(fasta)
+
+
+@pytest.mark.parametrize("found", ["absent", "empty"])
+def test_parse_failure_leaves_the_fasta_as_it_was(reserve_case, tmp_path,
+                                                  monkeypatch, found):
+    """A parse that fails after the FASTA's reservation engaged (it starts
+    with the pass on a plain FASTA) removes a FASTA the reservation
+    created and leaves an empty one it found empty."""
+    reads, paf_path, _ = reserve_case
+    fasta = tmp_path / "out.reads.fasta"
+    if found == "empty":
+        fasta.write_bytes(b"")
+    reserved = []
+    real = native.reserve
+
+    def reserve(path, n):
+        reserved.append(real(path, n))
+        return reserved[-1]
+
+    def boom(*a, **k):
+        deadline = time.monotonic() + 60
+        while not reserved:
+            assert time.monotonic() < deadline, "nothing was reserved"
+            time.sleep(0.002)
+        raise ValueError("parse failed")
+
+    monkeypatch.setattr(native, "reserve", reserve)
+    monkeypatch.setattr(pipeline, "load_reads", boom)
+    with pytest.raises(ValueError, match="parse failed"):
+        pipeline.run_pipeline(
+            reads, paf_path,
+            _reserve_params(str(tmp_path), "out", pipeline.AlgoParams),
+            device="cpu", verbose=False)
+    assert reserved == [os.path.getsize(reads)]
+    if found == "absent":
+        assert not fasta.exists()
+    else:
+        assert fasta.read_bytes() == b""
 
 
 def test_reserve_failure_is_reported(reserve_case, tmp_path, monkeypatch,

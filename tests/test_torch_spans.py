@@ -20,6 +20,7 @@ from raft_tpu_torch import profiling  # noqa: E402
 from raft_tpu_torch import pipeline as port_pipeline  # noqa: E402
 from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
 from raft_tpu_torch.io import native  # noqa: E402
+from raft_tpu_torch.ops import gather_cuda  # noqa: E402
 from raft_tpu_torch.params import AlgoParams  # noqa: E402
 
 OUTS = port_pipeline.OUT_NAMES
@@ -50,6 +51,8 @@ COUNTERS = {"parse.fasta_bytes", "parse.paf_bytes", "parse.reads",
             "parse.paf_rows", "engine.buckets", "engine.events",
             "engine.windows", "engine.h2d_bytes", "engine.d2h_bytes",
             "engine.fragments", "engine.cut_reads", "engine.repeats",
+            "engine.table_bytes", "engine.gather.buckets",
+            "engine.gather.bytes",
             *(f"engine.wide.{k}" for k in ("buckets", "reads", "windows",
                                            "events", "repeats",
                                            "fragments")),
@@ -168,11 +171,16 @@ def test_documented_names(recorded, sched):
             assert s["thread"] != root_thread(st)
         if s["name"] == "emit.fasta.reserve_wait":
             assert by_id[s["parent"]]["name"] == "emit.fasta"
-        if s["name"] in ("engine.bucket_prep", "engine.h2d", "engine.step"):
-            regimes = ({"pileup_regime": 0, "scan_chop_regime": 0}
-                       if s["name"] == "engine.step" else {})
+        if s["name"] == "engine.step":
+            regimes = {"pileup_regime": 0, "scan_chop_regime": 0}
             assert set(s["attrs"]) == {"B", "W", "E", *regimes}
             assert regimes.items() <= s["attrs"].items()
+        if s["name"] == "engine.bucket_prep":
+            assert set(s["attrs"]) == {"buckets"}
+            assert s["attrs"]["buckets"] >= 1
+        if s["name"] == "engine.h2d":  # the table's one upload
+            assert s["attrs"] == {"table": 1}
+        if s["name"] in ("engine.bucket_prep", "engine.h2d", "engine.step"):
             assert by_id[s["parent"]]["name"] == "compute"
         if s["name"] in WRITERS:
             assert s["thread"] != root_thread(st)
@@ -213,15 +221,29 @@ def test_counters_count_what_they_say(recorded, sched, case):
         assert st.counters[w + ".write_calls"] >= 1
         assert st.counters[w + ".shards"] >= 1
     assert st.counters["engine.buckets"] == len(st.buckets) == len(inputs)
-    assert st.counters["engine.h2d_bytes"] == sum(inputs)
+    assert (st.counters["engine.gather.buckets"]
+            == st.counters["engine.buckets"])
+    assert st.counters["engine.gather.bytes"] == sum(inputs)
+    # one table a compute: read offsets, two window columns, lengths
+    n_computes = st.n_chunks if sched == "chunked" else 1
+    assert st.counters["engine.table_bytes"] == (
+        8 * (st.n_reads + n_computes) + 8 * st.counters["engine.events"]
+        + 4 * st.n_reads)
+    # and the gather's plan: each step's fields, each block's (step, first
+    # row), each read's id, int64 all
+    blocks = sum(-(-B // gather_cuda.ROWS) for B, _, _ in st.buckets)
+    assert st.counters["engine.h2d_bytes"] == (
+        st.counters["engine.table_bytes"]
+        + 8 * (gather_cuda.NF * len(st.buckets) + 2 * blocks + st.n_reads))
     assert st.counters["engine.windows"] == st.total_windows
     assert st.counters["parse.reads"] == st.n_reads
     assert st.counters["parse.paf_rows"] == st.n_paf_rows
     assert st.counters["parse.fasta_bytes"] == os.path.getsize(reads)
     assert st.counters["parse.paf_bytes"] == os.path.getsize(paf)
-    if sched == "whole":  # a base and a newline a read, read lengths summed
+    if sched == "whole":  # reserved from the start: the reads file's size
         assert (st.counters["emit.fasta.reserved_bytes"]
-                == st.total_read_length + st.n_reads)
+                == os.path.getsize(reads)
+                >= st.total_read_length + st.n_reads)
 
 
 def test_ul_counters_tie_to_the_outputs(ul_case, monkeypatch):
@@ -264,6 +286,36 @@ def test_no_reservation_off_the_plain_whole_file(recorded, kw):
     st, _ = recorded("noreserve_" + "_".join(map(str, kw.values())), **kw)
     assert not RESERVE & {s["name"] for s in st.spans}
     assert "emit.fasta.reserved_bytes" not in st.counters
+
+
+RESERVE_STARTS = {"fasta": ({}, 1), "fastq": ({"fastq": True}, 0),
+                  "gz": ({"gz": True}, 0), "nonempty": ({}, 0)}
+
+
+@pytest.mark.parametrize("inp", RESERVE_STARTS)
+def test_reservation_starts_with_the_pass_on_a_plain_fasta(tmp_path,
+                                                           monkeypatch, inp):
+    """Plain FASTA reads and an absent output: ``emit.reserve`` (``early``
+    1) begins before ``load_reads`` ends and reserves the reads file's
+    size. FASTQ or gz reads, or an output that holds bytes: ``early`` 0,
+    from ``load_reads``' end, the bases and a newline a read."""
+    mode, early = RESERVE_STARTS[inp]
+    reads, paf = datagen.standard_case(seed=23, tmpdir=str(tmp_path),
+                                       n_reads=30, **mode)
+    if inp == "nonempty":
+        (tmp_path / "r.reads.fasta").write_bytes(b">earlier run\nACGT\n")
+    monkeypatch.setenv("RAFT_SPANS", "1")
+    st = _run(reads, paf, str(tmp_path), "r", chunk_reads=0)
+    res = [s for s in st.spans if s["name"] == "emit.reserve"]
+    load = next(s for s in st.spans if s["name"] == "load_reads")
+    assert len(res) == 1 and res[0]["attrs"] == {"early": early}
+    if early:
+        assert res[0]["t0"] < load["t1"]
+    else:
+        assert res[0]["t0"] >= load["t1"]
+    assert st.counters["emit.fasta.reserved_bytes"] == (
+        os.path.getsize(reads) if early
+        else st.total_read_length + st.n_reads)
 
 
 @pytest.fixture(scope="module")
