@@ -50,10 +50,13 @@ kernel's coverage and the bucket's lengths, every output exactly.
    of every bucket, pack32 and pairs, on that dataset's table and on a
    table of megabase reads whose widest steps have int32 event columns
    (``wide_table``), timed on the dataset against its bytes.
-5. Coverage return modes on the 32k dataset: ``--cov-out diff8`` and
-   ``--cov-out cov`` with ``--device cuda`` must equal the ``host`` run
-   byte for byte; then each mode's engine stage seconds (the ``step``
-   timer holds its D2H) and D2H bytes, alternating modes.
+5. Compressed inputs on the 32k dataset with ``--device cuda``: a gzip
+   copy (the ``gzip`` command, one DEFLATE stream) and a BGZF copy
+   (``io.native.bgzf_compress_file``) of both files. These take the
+   compressed read path: no early reservation of the fragment FASTA.
+   The BGZF run also passes ``--cov-out diff8``, which the port accepts
+   for ``raft_tpu`` command lines and renders on the host as every mode.
+   Each run must give the ``host`` run's files byte for byte.
 6. Read sharding and multi-process runs on the 32k dataset, each
    byte-equal to the unsharded ``--device cuda`` run:
    a. the CLI with ``--devices 1 --device cuda``;
@@ -89,8 +92,8 @@ kernel's coverage and the bucket's lengths, every output exactly.
    those are the timed run's buckets. Last, ``--chunk-reads 0 --device
    cpu``. The four files of all seven runs must be equal: each run's
    outputs are hashed (SHA-256) and deleted, so the disk holds the inputs
-   plus one run's outputs (about 6 GB). The dataset and the last run's
-   outputs stay for step 10d.
+   plus one run's outputs (about 6 GB); the dataset and the last run's
+   outputs go before step 9.
 9. The ground-truth evaluation (``raft_tpu_torch.tools.eval_repeats``)
    on the card, every point counting its own pileup launches (reset just
    before, read just after: one per bucket of the product run and of the
@@ -116,29 +119,7 @@ kernel's coverage and the bucket's lengths, every output exactly.
       ``compute_torch`` pass's buckets), every bucket held against the
       plain twin and the outputs SHA-256-equal; and the point again with
       ``--device cpu``: the same row and outputs (about 8 GB of disk).
-10. The measurement entry points, each run as a user runs it:
-   a. ``raft_tpu_torch.bench`` at 32k (its own ``gen_dataset``, byte-equal
-      to step 4's), warm-up and ``HARNESS_ROUNDS`` rounds, its CPU
-      ablation off (step 4 ran ``--device cpu``): ``pileup_ok`` true,
-      the card's names in its line, its files SHA-256-equal to step 4's,
-      and the kernel launched once per bucket of every run plus once for
-      the parity check;
-   b. ``tools/bench_fetch`` at 32k: step 4's bucket count, nine launches
-      per bucket (warm-up, three timed runs, the outputs to fetch, the
-      engine-like warm-up and three timed runs) and four of the gather
-      (the engine-like runs');
-   c. ``tools/bench_pileup`` at 32k: every bucket exact, each launched
-      once to warm up and ``LAUNCHES`` times a round;
-   d. ``tools/bench_chunk`` on step 8's 100k dataset, auto-stream (4
-      chunks), its outputs equal to step 8's (``all_equal``);
-   e. ``tools/bench_scale`` at ``SCALE_READS`` reads x ``SCALE_ROWS``
-      rows, ``--chunk SCALE_CHUNK``; then ``tools/bench_gz_scale`` on its
-      dataset: plain, gz and BGZF. Both ``all_equal``.
-   a-c run in this process after step 9; d-e start the CLI in fresh
-   processes from a thread that runs beside step 9 (its walls and theirs
-   are taken on a shared host), and every such run's ``--stats-json``
-   must name ``cuda:0`` and report one pileup launch per bucket.
-11. Checks that neither jax nor any ``raft_tpu`` module was imported,
+10. Checks that neither jax nor any ``raft_tpu`` module was imported,
    prints the kernel table (``pileup``, ``scan_chop`` and ``gather``) as
    one JSON line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -147,17 +128,14 @@ Every CLI run on the card (steps 4-8) counts its own launches of each
 kernel (reset just before, read just after) and must have launched the
 pileup and ``scan_chop`` once per bucket it reports and the gather once
 per chunk and card; it prints its wall, reads/s, stage seconds
-and peak ``torch.cuda.max_memory_allocated``. So does every entry point
-of step 10 (``bench_pileup`` launches only the pileup, and the bench's
-parity check one more pileup); the fresh processes of 10d-e report both
-counts in their ``--stats-json``.
+and peak ``torch.cuda.max_memory_allocated``.
 
 Only ``raft_tpu_torch`` is imported; its native I/O builds with fixed
 flags, whatever the environment's ``CXX``, ``CXXFLAGS`` and ``LDFLAGS``.
-The environment's ``RAFT_AUTO_CHUNK_BYTES``, ``RAFT_COV_OUT``,
-``RAFT_CHUNK_TRACE`` and ``RAFT_SPANS`` are dropped, so every run takes the
-defaults; from step 4 on, ``RAFT_SPANS=1`` records the runs' spans, whose
-seconds the main-path lines print.
+The environment's ``RAFT_AUTO_CHUNK_BYTES``, ``RAFT_CHUNK_TRACE`` and
+``RAFT_SPANS`` are dropped, so every run takes the defaults; from step 4
+on, ``RAFT_SPANS=1`` records the runs' spans, whose seconds the main-path
+lines print.
 
 ``--multi-card`` runs steps 1-2 and then only what needs several cards,
 on the 32k dataset: the CLI with ``--devices N`` over all N cards,
@@ -185,31 +163,24 @@ import dataclasses
 import filecmp
 import hashlib
 import importlib.util
-import io
 import json
 import os
 import shutil
-import signal
 import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
-from contextlib import redirect_stdout
 
-N_READS = 32000          # bench.py's headline dataset
+N_READS = 32000          # the main-path dataset (gen_dataset, seed 7)
 N_BIG = 100_000          # streaming dataset: ~2.4 GB FASTA, over the gate
 N_BIG_OVERLAPS = 3_000_000
 BIG_CHUNKS = 4           # ceil(100000 / DEFAULT_CHUNK_READS = 32768)
 SPILL_CHUNK = 8192
 N_SHARDS = 4             # shards on one card (step 6b)
 SHARD_CHUNK = 8192
-HARNESS_ROUNDS = 3       # step 10a: raft_tpu_torch.bench's timed rounds
-SCALE_READS, SCALE_ROWS, SCALE_CHUNK = 20_000, 30, 8192  # step 10e
 # run-time overrides the run must not inherit
-RAFT_ENV = ("RAFT_AUTO_CHUNK_BYTES", "RAFT_COV_OUT", "RAFT_CHUNK_TRACE",
-            "RAFT_SPANS")
+RAFT_ENV = ("RAFT_AUTO_CHUNK_BYTES", "RAFT_CHUNK_TRACE", "RAFT_SPANS")
 # The H100 SXM's peaks at 700 W: HBM bytes/s (NVIDIA's data sheet), and
 # int32 adds/s for the pileup's adds. The data sheet's 67 TFLOP/s float32
 # is 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz; an SM has 64 int32
@@ -638,8 +609,8 @@ def scan_chop_phase(torch, np, et, pileup_cuda, params):
 
 
 def profile_step(torch, et, pipeline, params, reads, paf, n_buckets):
-    """One 32k ``compute_torch`` pass in ``host`` mode under
-    torch.profiler, the active step of a schedule whose warm-up step is
+    """One 32k ``compute_torch`` pass (``host`` mode, its one coverage
+    path) under torch.profiler, the active step of a schedule whose warm-up step is
     the same pass (events at a session's start are not reliable): the
     card must run only the two kernels, once per bucket each, and copies
     (memcpy, memset). Prints each device name's count and microseconds."""
@@ -662,8 +633,7 @@ def profile_step(torch, et, pipeline, params, reads, paf, n_buckets):
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=ready) as prof:
         for _ in range(2):
-            et.compute_torch(store, table, params, device="cuda",
-                             cov_out="host")
+            et.compute_torch(store, table, params, device="cuda")
             torch.cuda.synchronize()
             prof.step()
     kinds = {"pileup": pileup_cuda.KERNEL_NAMES,
@@ -984,6 +954,29 @@ def digest_and_remove(prefix: str) -> dict:
     return out
 
 
+def compressed_copy(kind: str, inputs) -> tuple:
+    """A gzip (``gzip -5``, one DEFLATE stream) or BGZF (the port's
+    block-parallel ``bgzf_compress_file``) copy of each input, beside it
+    with ``.gz``/``.bgzf.gz`` appended; prints the seconds it took."""
+    from raft_tpu_torch.io import native
+    t0 = time.perf_counter()
+    out = []
+    for src in inputs:
+        dst = src + (".gz" if kind == "gz" else ".bgzf.gz")
+        if kind == "gz":
+            with open(dst, "wb") as f:
+                subprocess.run(["gzip", "-c", "-5", src], stdout=f,
+                               check=True)
+        else:
+            check(native.bgzf_compress_file(src, dst),
+                  f"BGZF compression of {src} failed")
+        out.append(dst)
+    print(f"{kind} copies of the inputs: "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(os.path.getsize(f) for f in out) / 2**20:.1f} MiB")
+    return tuple(out)
+
+
 def drive(torch, cli, pileup_cuda, opts, inputs, prefix, label, n_reads):
     """One CLI run with ``--device cuda``: its own launch counts (reset
     just before, read just after) and peak device memory. Fails unless
@@ -1041,30 +1034,6 @@ def held_run(torch, cli, pipeline, pileup_cuda, opts, inputs, prefix, label,
     print(f"{label}: kernel == plain on all {len(rows)} buckets, "
           f"(B, W) {shapes}")
     return rows, digest_and_remove(prefix)
-
-
-def cov_mode_timing(torch, et, pipeline, params, reads, paf):
-    """``compute_torch`` on the card in each coverage return mode, in
-    turns (host, diff8, cov, cov, diff8, host) on one parse of the input:
-    prints the engine's stage seconds and the D2H bytes of each mode."""
-    stats = pipeline.TorchRunStats()
-    store, table = pipeline.load_inputs(reads, paf, stats)
-    params = params.replace(real_reads=store.real_reads,
-                            symmetric_overlaps=table.symmetric)
-    for mode in ("host", "diff8", "cov", "cov", "diff8", "host"):
-        timers: dict = {}
-        shapes: list = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        et.compute_torch(store, table, params, device="cuda", cov_out=mode,
-                         timers_out=timers,
-                         on_bucket=lambda cfg, *_: shapes.append(cfg))
-        timers["compute"] = time.perf_counter() - t0
-        per_cell = {"host": 0, "diff8": 1, "cov": 4}[mode]
-        d2h = sum(c.B * (et.packed_width(c) * 4 + c.W * per_cell)
-                  for c in shapes)
-        print(f"cov_out {mode:5s}: D2H {d2h / 2**20:.1f} MiB, "
-              + ", ".join(f"{k} {v:.4f} s" for k, v in timers.items()))
 
 
 def sharded_phase(torch, cli, pipeline, pileup_cuda, inputs, prefix, want,
@@ -1222,9 +1191,10 @@ def multi_process_phase(inputs, prefix, want, devs, visible=None):
         r = json.loads(out.splitlines()[-1])
         check(not r["foreign"], f"{label} imported {r['foreign']}")
         held = r["held"]
-        n = len(held) if r_dev == "cuda" else 0
+        steps = len(held) if r_dev == "cuda" else 0
         check(len(held) > 0 and r["launches"] == {
-            "pileup": n, "scan_chop": n, "gather": int(r_dev == "cuda")},
+            "pileup": steps, "scan_chop": steps,
+            "gather": int(r_dev == "cuda")},
               f"{label}: launches {r['launches']} for {len(held)} device "
               "steps and one compute")
         bad = [h for h in held if not (h["equal"] and h.get("sc_equal"))
@@ -1628,212 +1598,6 @@ def eval_phase(torch, np, pipeline, pileup_cuda, work, times):
     return by_path, held
 
 
-def tool_in_process(main, argv, env):
-    """An entry point's ``main(argv)`` in this process, with ``env`` set
-    for the call: (its exit code, its JSON line). Its stdout is captured
-    and printed after."""
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    buf = io.StringIO()
-    try:
-        with redirect_stdout(buf):
-            rc = main(argv)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    lines = buf.getvalue().strip().splitlines()
-    return rc, (json.loads(lines[-1]) if lines else None)
-
-
-class Beside:
-    """``fn(self, *args)`` in a thread beside the caller's work. ``join``
-    returns what it returned, or raises what it raised (a failed check
-    included); ``stop`` kills the processes it started through ``run``,
-    each with its own children (a session of its own), and lets it start
-    no more."""
-
-    def __init__(self, fn, *args):
-        self.procs, self.box = [], {}
-        self.lock, self.stopped = threading.Lock(), False
-
-        def body():
-            try:
-                self.box["out"] = fn(self, *args)
-            except BaseException as e:  # re-raised by join
-                self.box["err"] = e
-        self.thread = threading.Thread(target=body)
-        self.thread.start()
-
-    def run(self, argv, **kw):
-        with self.lock:
-            check(not self.stopped, "stopped")
-            p = subprocess.Popen(argv, start_new_session=True, **kw)
-            self.procs.append(p)
-        return p
-
-    def stop(self):
-        with self.lock:
-            self.stopped = True
-            for p in self.procs:
-                try:
-                    os.killpg(p.pid, signal.SIGKILL)
-                except ProcessLookupError:
-                    pass
-
-    def join(self):
-        self.thread.join()
-        if "err" in self.box:
-            raise self.box["err"]
-        return self.box["out"]
-
-
-def tool_process(beside, env, module, args, label):
-    """``python -m module args`` in a fresh process from the repository
-    root with ``env``, started by ``beside``: its JSON line; fails unless
-    it exits 0."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    p = beside.run([sys.executable, "-m", module, *args], cwd=root,
-                   env={**env, "PYTHONPATH": root}, stdout=subprocess.PIPE,
-                   stderr=subprocess.PIPE, text=True)
-    out, err = p.communicate(timeout=900)
-    check(p.returncode == 0, f"{label}: exit {p.returncode}\n{err[-3000:]}")
-    line = json.loads(out.strip().splitlines()[-1])
-    print(f"{label}: {time.perf_counter() - t0:.1f} s; {json.dumps(line)}")
-    return line
-
-
-def on_card(run: dict, label: str) -> dict:
-    """A fresh process's CLI run, from its ``--stats-json``: on
-    ``cuda:0``, one launch of each kernel per bucket. Returns the
-    launches."""
-    check(run["devices"] == ["cuda:0"], f"{label}: devices {run['devices']}")
-    once_each(run["launches"], run["n_buckets"], label, run["n_chunks"])
-    return run["launches"]
-
-
-def harness_phase(torch, pileup_cuda, name, smi, work, want, n_buckets):
-    """Step 10a-c: the entry points that run in this process. ``want`` is
-    the 32k run's digest and ``n_buckets`` its bucket count. Returns the
-    launches by path."""
-    from raft_tpu_torch import bench
-    from raft_tpu_torch.tools import bench_fetch, bench_pileup
-    by_path = {}
-    hw = os.path.join(work, "harness")
-    env = {"RAFT_BENCH_DIR": hw, "RAFT_BENCH_READS": str(N_READS),
-           "RAFT_BENCH_ROUNDS": str(HARNESS_ROUNDS),
-           "RAFT_BENCH_CPU_ABLATION": "0"}
-
-    # a. the headline benchmark
-    label = f"32k raft_tpu_torch.bench, {HARNESS_ROUNDS} rounds"
-    torch.cuda.synchronize()
-    zero_launches()
-    t0 = time.perf_counter()
-    rc, line = tool_in_process(bench.main, [], env)
-    counts = launch_counts()
-    print(f"{label}: {time.perf_counter() - t0:.1f} s; {json.dumps(line)}")
-    check(rc == 0 and line["pileup_ok"] is True
-          and line["rounds"] == HARNESS_ROUNDS and line["n_reads"] == N_READS
-          and line["device_name"] == name
-          and line["nvidia_smi"] == smi.strip().splitlines()[0],
-          f"{label}: exit {rc}, line {line}")
-    runs = (1 + HARNESS_ROUNDS) * n_buckets
-    check(counts == {"pileup": runs + 1, "scan_chop": runs,
-                     "gather": 1 + HARNESS_ROUNDS},
-          f"{label}: launches {counts}, not (1 + {HARNESS_ROUNDS}) x "
-          f"{n_buckets} of each (+ 1 pileup), a gather a run")
-    check(digest_and_remove(os.path.join(hw, "ours")) == want,
-          f"{label}: outputs differ from step 4's")
-    print(f"{label}: launches {counts} (= (1 + {HARNESS_ROUNDS}) x "
-          f"{n_buckets} buckets, + 1 pileup parity check); outputs == step "
-          "4's")
-    by_path[label] = counts
-
-    # b. the transfer decomposition
-    label = "32k tools.bench_fetch"
-    zero_launches()
-    rc, line = tool_in_process(bench_fetch.main, [], env)
-    counts = launch_counts()
-    print(f"{label}: launches {counts}; {json.dumps(line)}")
-    check(rc == 0 and line["n_buckets"] == n_buckets,
-          f"{label}: exit {rc}, {line.get('n_buckets')} buckets")
-    # host_inputs for the link's parts; the gather in the engine-like runs
-    once_each(counts, 9 * n_buckets, label, 4)
-    by_path[label] = counts
-
-    # c. the kernel against its plain twin, bucket by bucket
-    label = "32k tools.bench_pileup"
-    zero_launches()
-    rc, line = tool_in_process(bench_pileup.main, [], env)
-    counts = launch_counts()
-    rows = line["shapes"]
-    for r in rows:
-        print(f"{label} B={r['B']} W={r['W']} E={r['E']}: kernel "
-              f"{r['kernel_s'] * 1e6:.1f} us, plain {r['plain_s'] * 1e6:.1f} "
-              f"us a call (host wall), spread {r['spread']}, equal "
-              f"{r['outputs_equal']}")
-    check(rc == 0 and line["outputs_equal"] and len(rows) == n_buckets
-          and all(r["outputs_equal"] for r in rows),
-          f"{label}: exit {rc}, {len(rows)} shapes, not all equal")
-    per = 1 + line["rounds"] * bench_pileup.LAUNCHES
-    check(counts == {"pileup": per * n_buckets, "scan_chop": 0,
-                     "gather": 0},
-          f"{label}: launches {counts}, not {per} x {n_buckets} pileups "
-          "alone")
-    print(f"{label}: all {len(rows)} buckets exact; launches {counts}")
-    by_path[label] = counts
-    shutil.rmtree(hw)
-    return by_path
-
-
-def tools_phase(beside, env, work, big, big_expect):
-    """Step 10d-e: the entry points that start the CLI in fresh
-    processes, all started by ``beside`` with ``env`` (taken before the
-    thread starts: this process changes its own environment meanwhile).
-    ``big`` is step 8's 100k inputs and ``big_expect`` the prefix of its
-    outputs (removed here with the inputs). Returns the launches by
-    path."""
-    by_path = {}
-    # d. the chunked wall decomposition on step 8's dataset
-    label = "100k tools.bench_chunk (auto-stream)"
-    cw = os.path.join(work, "bench_chunk")
-    line = tool_process(beside, env, "raft_tpu_torch.tools.bench_chunk",
-                        ["--reads", big[0], "--paf", big[1], "--workdir", cw,
-                         "--expect", big_expect], label)
-    check(line["all_equal"] is True and line["n_chunks"] == BIG_CHUNKS,
-          f"{label}: all_equal {line.get('all_equal')}, "
-          f"{line['n_chunks']} chunks")
-    by_path[label] = on_card(line, label)
-    shutil.rmtree(cw)
-    for f in [*big, *(big_expect + ext for ext in OUTS)]:
-        os.remove(f)
-
-    # e. the scale runner, then gz and BGZF inputs on its dataset
-    sd = os.path.join(work, "scale")
-    label = f"{SCALE_READS // 1000}k tools.bench_scale"
-    line = tool_process(beside, env, "raft_tpu_torch.tools.bench_scale",
-                        ["--reads", str(SCALE_READS), "--rows-per-read",
-                         str(SCALE_ROWS), "--chunk", str(SCALE_CHUNK),
-                         "--dir", sd], label)
-    check(line["all_equal"] is True, f"{label}: outputs differ")
-    for run in ("whole", "chunked"):
-        by_path[f"{label}, {run}"] = on_card(line[run], f"{label}, {run}")
-    tag = os.path.join(sd, f"scale{SCALE_READS}")
-    label = f"{SCALE_READS // 1000}k tools.bench_gz_scale"
-    line = tool_process(beside, env, "raft_tpu_torch.tools.bench_gz_scale",
-                        ["--reads", tag + ".reads.fasta", "--paf",
-                         tag + ".overlaps.paf", "--dir",
-                         os.path.join(sd, "gz")], label)
-    check(line["all_equal"] is True, f"{label}: outputs differ")
-    for run in ("plain", "gz", "bgzf"):
-        by_path[f"{label}, {run}"] = on_card(line[run], f"{label}, {run}")
-    shutil.rmtree(sd)
-    return by_path
-
-
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1981,21 +1745,23 @@ def main(argv: list[str]) -> int:
                                   paf)
         by_path = {"32k whole-file": counts}
 
-        # 5. coverage return modes: byte-equal to the host run
+        # 5. gzip and BGZF copies of the inputs (--cov-out diff8 on the
+        # BGZF one): byte-equal to the plain host run
         want = digest_and_remove(pre["cuda"])
         for dev in ("cuda", "cpu"):
             os.remove(pre[dev] + ".stats.json")
         digest_and_remove(pre["cpu"])
-        for mode in ("diff8", "cov"):
-            label = f"32k --cov-out {mode}"
-            st = drive(torch, cli, pileup_cuda,
-                       BENCH_ARGS + ["--cov-out", mode], (reads, paf),
-                       os.path.join(work, mode), label, N_READS)
-            check(digest_and_remove(os.path.join(work, mode)) == want,
-                  f"{label} outputs differ from the host run's")
+        for kind, extra in (("gz", []), ("bgzf", ["--cov-out", "diff8"])):
+            packed = compressed_copy(kind, (reads, paf))
+            label = " ".join([f"32k {kind}", *extra])
+            st = drive(torch, cli, pileup_cuda, BENCH_ARGS + extra, packed,
+                       os.path.join(work, kind), label, N_READS)
+            check(digest_and_remove(os.path.join(work, kind)) == want,
+                  f"{label} outputs differ from the plain host run's")
             by_path[label] = st["launches"]
-        print("32k --cov-out diff8 and cov == host (4 files)")
-        cov_mode_timing(torch, et, pipeline, params, reads, paf)
+            for f in packed:
+                os.remove(f)
+            print(f"{label} == plain host run (4 files)")
 
         # 6a. --devices 1 through the CLI
         label = "32k --devices 1"
@@ -2126,21 +1892,13 @@ def main(argv: list[str]) -> int:
               f"held, == whole-file on cpu ({len(digests)} runs, 4 files, "
               f"SHA-256 {first['.reads.fasta'][:16]}...)")
 
-        # 10d-e start beside step 9: fresh processes on a shared card
-        beside = Beside(tools_phase, dict(os.environ), work, big, cpre)
-        try:
-            # 9. the ground-truth evaluation on the card
-            eval_paths, eval_rows = eval_phase(torch, np, pipeline,
-                                               pileup_cuda, work, big_times)
-            by_path.update(eval_paths)
-            # 10a-c. the measurement entry points in this process
-            by_path.update(harness_phase(torch, pileup_cuda, name, smi,
-                                         work, want, len(shapes)))
-        except BaseException:
-            beside.stop()
-            beside.thread.join()
-            raise
-        by_path.update(beside.join())
+        for f in [*big, *(cpre + ext for ext in OUTS)]:
+            os.remove(f)
+
+        # 9. the ground-truth evaluation on the card
+        eval_paths, eval_rows = eval_phase(torch, np, pipeline, pileup_cuda,
+                                           work, big_times)
+        by_path.update(eval_paths)
 
     return report(torch, name, "32k whole-file", by_path, real,
                   kcases + real + big_rows + shard_rows + rank_rows

@@ -19,7 +19,10 @@ seconds by name and the counters; ``--stats-json`` holds both.
 CPU; 0 runs unsharded. ``--pallas``/``--no-pallas`` are accepted and
 change nothing: there is one pileup, the CUDA kernel on ``--device cuda``
 and its plain twin on ``--device cpu``, as ``raft_tpu`` runs its one
-scatter pileup either way off a TPU. stdout is line-identical to
+scatter pileup either way off a TPU. ``--cov-out host|diff8|cov`` is
+accepted too and gives the same bytes in every mode, since the port
+renders the coverage on the host; another value is refused where the
+torch engine would start. stdout is line-identical to
 ``raft_tpu.cli`` apart from the wall-time and ``CMD:`` lines.
 """
 
@@ -292,9 +295,10 @@ raft_tpu_torch extensions (not part of the reference surface):
                           in streaming mode, spill the PAF's coverage
                           events to per-chunk files (default: auto, PAF
                           > max(2 GiB, 15% of memory))
-  --cov-out MODE          coverage return path: host (default; rebuilt
-                          host-side, minimal D2H), diff8 (int8 diff
-                          transfer), cov (full int32)
+  --cov-out MODE          host, diff8 or cov, accepted for raft_tpu
+                          command lines: the port renders the coverage on
+                          the host in every mode, and the three give the
+                          same bytes (any other value is refused)
   --trace DIR             write a torch.profiler Chrome trace, with the
                           run's host spans, into DIR
   --devices N             shard the reads over the first N CUDA devices

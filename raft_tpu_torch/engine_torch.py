@@ -22,18 +22,17 @@ Semantics carried over from the JAX engine:
 * the uint32 event wire word travels as an int32 tensor of the same bits
   and decodes in int64, since PyTorch's ``>>`` on int32 is arithmetic.
 
-Three coverage return modes, as in the JAX engine (``cov_out``,
-``RAFT_COV_OUT``): ``host`` (default) keeps the coverage matrix on the
-device and ``.coverage.txt`` renders from the events on the host;
-``diff8`` ships the int8 per-window diff and the host cumsums it,
-rebuilding from the bucket's own events any row whose diff does not fit
-in int8; ``cov`` ships the int32 matrix.
+One coverage path: ``compute_torch`` keeps the coverage matrix on the
+device, and ``.coverage.txt`` renders on the host from the window-binned
+events, which it hands over before any device work. ``StaticCfg.cov_out``
+keeps the JAX engine's three return modes for ``device_step`` alone,
+which is held against ``engine_jax.device_step_impl`` in each: ``diff8``
+adds the int8 per-window diff, ``cov`` the int32 matrix.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
@@ -77,16 +76,11 @@ class StaticCfg:
     ev_pack: int = 32  # event wire format: 32 = one uint32 word, 0 = pairs
 
 
-def default_cov_out() -> str:
-    """Coverage return mode when the caller names none: ``RAFT_COV_OUT``,
-    else ``host``."""
-    return os.environ.get("RAFT_COV_OUT", "host")
-
-
 def derive_cfg(B: int, W: int, E: int, params: AlgoParams,
                cov_out: str | None = None) -> StaticCfg:
     """Closed-form slot bounds, field for field those of
-    ``engine_jax.derive_cfg``: no input can exceed M, K or F."""
+    ``engine_jax.derive_cfg``: no input can exceed M, K or F. ``cov_out``
+    None is ``host``."""
     reso = params.reso
     il = params.interval_length
     rl = params.repeat_length
@@ -98,7 +92,7 @@ def derive_cfg(B: int, W: int, E: int, params: AlgoParams,
                      high_cov=params.high_cov, repeat_length=rl,
                      flank=params.flanking_length, interval_length=il,
                      div=params.div, overlap_length=params.overlap_length,
-                     cov_out=cov_out or default_cov_out(),
+                     cov_out=cov_out or "host",
                      ev_pack=event_pack_mode(W))
 
 
@@ -343,8 +337,8 @@ def device_step(lens, ev_off, ev_pk, cfg: StaticCfg) -> dict:
     ``packed`` is the ``[B, 2K+2F+5]`` int32 per-read array. By
     ``cfg.cov_out``: ``diff8`` adds the int8 ``[B, W]`` per-window diff,
     with ``ok8`` 0 on rows where a window gains or loses more than int8
-    holds (the cast wraps there, as JAX's does; the host rebuilds those
-    rows); ``cov`` adds the int32 ``[B, W]`` coverage; ``host`` adds
+    holds (the cast wraps there, as JAX's does); ``cov`` adds the int32
+    ``[B, W]`` coverage; ``host``, the mode ``compute_torch`` runs, adds
     nothing. ``ok8`` is 1 on every row outside ``diff8``."""
     cov = pileup(ev_off, ev_pk, cfg)
     out = scan_chop(cov, lens, cfg)
@@ -421,7 +415,7 @@ def cov_sum(ev_off, w0, w1, lens, reso: int) -> int:
 
 
 def plan_steps(lens: np.ndarray, ev_counts: np.ndarray, params: AlgoParams,
-               n_shards: int = 1, cov_out: str | None = None):
+               n_shards: int = 1):
     """The device steps of a pass, from the read lengths and per-read
     event counts alone: for each bucket of ``bucketing.plan_buckets``, its
     ``BucketShape``, the ``StaticCfg`` of one shard and per shard
@@ -433,8 +427,7 @@ def plan_steps(lens: np.ndarray, ev_counts: np.ndarray, params: AlgoParams,
         rows = (shard_rows(shape.read_ids, shape.B,
                            ev_counts[shape.read_ids], n_shards)
                 if n_shards > 1 else [(shape.read_ids, shape.B, shape.E)])
-        cfg = derive_cfg(rows[0][1], shape.W, rows[0][2], params,
-                         cov_out=cov_out)
+        cfg = derive_cfg(rows[0][1], shape.W, rows[0][2], params)
         trunc16 = bucketing.event_dtype(shape.B, shape.W) == np.int16
         yield shape, cfg, [
             gather_cuda.Step(rids, B, E, cfg.W, cfg.ev_pack == 0, trunc16)
@@ -442,8 +435,7 @@ def plan_steps(lens: np.ndarray, ev_counts: np.ndarray, params: AlgoParams,
 
 
 def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
-                  strict: bool = True, cov_out: str | None = None,
-                  on_cov_events=None,
+                  strict: bool = True, on_cov_events=None,
                   timers_out: dict | None = None,
                   grouped=None, device="cuda",
                   on_bucket=None, devices=None) -> ComputeResult:
@@ -457,14 +449,12 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     table to the device once, and one gather (``ops.gather_cuda``: the
     kernel on a card, its plain twin on the CPU) writes every bucket's
     device inputs there, the arrays ``host_inputs`` would build. Each
-    bucket is then one ``device_step`` on the current stream and its D2H
-    copies: the packed array alone in ``host`` mode, plus the ``[B, W]``
-    diff or coverage in ``diff8`` / ``cov`` mode (``cov_out``, default
-    ``RAFT_COV_OUT`` or ``host``). In ``host`` mode ``.coverage.txt``
-    renders from the window-binned events, which ``on_cov_events``
-    receives with Σcov before any device work (the native grouping's
-    ``cov_sum``, else ``cov_sum`` here); in the other two it never fires,
-    and the result carries ``cov_flat``.
+    bucket is then one ``device_step`` on the current stream and the D2H
+    copy of its packed array. The coverage stays on the device:
+    ``.coverage.txt`` renders from the window-binned events, which
+    ``on_cov_events`` receives with Σcov before any device work (the
+    native grouping's ``cov_sum``, else ``cov_sum`` here), and which the
+    result carries as ``cov_ev_*`` with ``cov_flat`` None.
 
     ``devices`` (a list of torch devices, the counterpart of ``mesh=``)
     shards every bucket over them as contiguous row ranges
@@ -480,18 +470,18 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     = 1: the table's copies and the gather's launch), then per bucket
     ``step`` (attributes ``B``, ``W``, ``E``, and ``pileup_regime`` and
     ``scan_chop_regime``: the launch plans' regimes, 0 where the plain
-    twins run: the device steps, their D2H and the host's ``diff8``
-    rebuild), then ``integrate``; with the counters ``engine.events``,
-    ``engine.windows``, ``engine.buckets`` (device steps, one per bucket
-    and shard), ``engine.table_bytes`` (the table's copies),
-    ``engine.h2d_bytes`` (every H2D byte: the table and the gather's
-    plan), ``engine.gather.buckets`` (device steps whose inputs the
-    gather wrote), ``engine.gather.bytes`` (those inputs' bytes),
-    ``engine.d2h_bytes``, ``engine.fragments``, ``engine.cut_reads``
-    (reads cut into more than one fragment) and ``engine.repeats``, and
-    over the buckets wider than ``WIDE_W`` windows (``_wide_counts``)
-    ``engine.wide.buckets`` (device steps), ``.reads``, ``.windows``,
-    ``.events``, ``.repeats`` and ``.fragments``.
+    twins run: the device steps and their D2H), then ``integrate``; with
+    the counters ``engine.events``, ``engine.windows``, ``engine.buckets``
+    (device steps, one per bucket and shard), ``engine.table_bytes`` (the
+    table's copies), ``engine.h2d_bytes`` (every H2D byte: the table and
+    the gather's plan), ``engine.gather.buckets`` (device steps whose
+    inputs the gather wrote), ``engine.gather.bytes`` (those inputs'
+    bytes), ``engine.d2h_bytes``, ``engine.fragments``,
+    ``engine.cut_reads`` (reads cut into more than one fragment) and
+    ``engine.repeats``, and over the buckets wider than ``WIDE_W``
+    windows (``_wide_counts``) ``engine.wide.buckets`` (device steps),
+    ``.reads``, ``.windows``, ``.events``, ``.repeats`` and
+    ``.fragments``.
     ``timers_out`` receives those spans' seconds summed by stage;
     ``grouped`` is an already-computed ``events_grouped`` triple
     (``--auto-e`` reuses its pass).
@@ -499,11 +489,6 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     inputs after the gather, before its ``device_step``; with ``devices``
     it sees each shard's, with the per-shard ``cfg``, so it fires once
     per pileup launch."""
-    mode = cov_out or default_cov_out()
-    if mode not in COV_OUT_MODES:
-        raise ValueError(f"cov_out={mode!r}: must be one of "
-                         f"{', '.join(COV_OUT_MODES)}")
-    ev_backed = mode == "host"
     marks = profiling.Marks("engine.", want=timers_out is not None)
     mark = marks.mark
 
@@ -530,26 +515,22 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     profiling.count("engine.windows", int(nw_all.sum()))
 
     cov_off = _cumsum0(nw_all)
-    if ev_backed:
-        # event-backed coverage: everything .coverage.txt needs is known
-        # now, Σcov included (the native grouping's, else one pass here)
-        total_cov = getattr(grouped, "cov_sum", None)
-        if total_cov is None:
-            total_cov = cov_sum(ev_off_g, w0s, w1s, lens, reso)
-        cov_flat = None
-        if on_cov_events is not None:
-            z32 = np.empty(0, np.int32)
-            z64 = np.empty(0, np.int64)
-            on_cov_events(ComputeResult(
-                n_reads=n, cov_flat=None, cov_off=cov_off,
-                rep_s=z32, rep_e=z32, rep_off=np.zeros(n + 1, np.int64),
-                frag_read=z32, frag_char_start=z64, frag_char_len=z64,
-                frag_whole=np.empty(0, bool),
-                total_coverage=total_cov, total_windows=int(nw_all.sum()),
-                cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g))
-        mark("cov_events")
-    else:
-        cov_flat = np.empty(int(cov_off[-1]), dtype=np.int32)
+    # everything .coverage.txt needs is known now, Σcov included (the
+    # native grouping's, else one pass here)
+    total_cov = getattr(grouped, "cov_sum", None)
+    if total_cov is None:
+        total_cov = cov_sum(ev_off_g, w0s, w1s, lens, reso)
+    if on_cov_events is not None:
+        z32 = np.empty(0, np.int32)
+        z64 = np.empty(0, np.int64)
+        on_cov_events(ComputeResult(
+            n_reads=n, cov_flat=None, cov_off=cov_off,
+            rep_s=z32, rep_e=z32, rep_off=np.zeros(n + 1, np.int64),
+            frag_read=z32, frag_char_start=z64, frag_char_len=z64,
+            frag_whole=np.empty(0, bool),
+            total_coverage=total_cov, total_windows=int(nw_all.sum()),
+            cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g))
+    mark("cov_events")
 
     from raft_tpu_torch.parallel.mesh import run_shards
     devices = [torch.device(d) for d in (devices or [device])]
@@ -559,7 +540,7 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
     buckets = []
     steps: dict = {d: [] for d in devices}
     for shape, cfg, shard_steps in plan_steps(
-            lens, np.diff(ev_off_g), params, n_shards, mode):
+            lens, np.diff(ev_off_g), params, n_shards):
         where = []
         for dev, st in zip(devices, shard_steps):
             where.append((dev, len(steps[dev])))
@@ -590,20 +571,8 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         host = run_shards([gather_cuda.views(*gathered[dev][:2], i)
                            for dev, i in where], cfg, on_bucket)
         profiling.count("engine.buckets", n_shards)
-        profiling.count("engine.d2h_bytes", sum(
-            v.nbytes for v in host.values() if isinstance(v, np.ndarray)))
+        profiling.count("engine.d2h_bytes", host["packed"].nbytes)
         out = unpack_out(host["packed"], cfg)
-        if "diff8" in host:
-            cov = np.cumsum(host["diff8"], axis=1, dtype=np.int32)
-            bad = np.nonzero(~out["ok8"])[0]
-            if len(bad):
-                # a window gained or lost more than int8 holds, so the
-                # diff wrapped on these rows: rebuild them exactly from
-                # the bucket's own events
-                _host_cov_rows(shape, bad, cov, grouped)
-            out["cov"] = cov
-        elif "cov" in host:
-            out["cov"] = host["cov"]
         if recording and shape.W > WIDE_W:
             for k, v in _wide_counts(shape, n_shards, out, nw_all,
                                      grouped).items():
@@ -636,12 +605,6 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         nu = bk.n_used
         rid = bk.read_ids
         rows = np.arange(nu, dtype=np.int64)
-        if not ev_backed:
-            W = out["cov"].shape[1]
-            s_idx, d_idx = _slab_copy_idx(nw_all[rid], rows * W,
-                                          cov_off[rid])
-            cov_flat[d_idx] = out["cov"].ravel()[s_idx]
-
         K = out["rep_s"].shape[1]
         s_idx, d_idx = _slab_copy_idx(rep_n_all[rid], rows * K, rep_off[rid])
         rep_s[d_idx] = out["rep_s"].ravel()[s_idx]
@@ -655,8 +618,6 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         frag_read[d_idx] = np.repeat(rid, cnt)
         frag_wh[d_idx] = np.repeat(out["whole"][:nu], cnt)
 
-    if not ev_backed:
-        total_cov = int(cov_flat.sum(dtype=np.int64))
     mark("integrate")
     if recording:
         profiling.count("engine.fragments", n_frags)
@@ -668,7 +629,7 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         timers_out.update(marks.seconds())
     return ComputeResult(
         n_reads=n,
-        cov_flat=cov_flat, cov_off=cov_off,
+        cov_flat=None, cov_off=cov_off,
         rep_s=rep_s, rep_e=rep_e, rep_off=rep_off,
         frag_read=frag_read, frag_char_start=frag_cs,
         frag_char_len=frag_cl, frag_whole=frag_wh,
@@ -676,9 +637,7 @@ def compute_torch(store: ReadStore, table: OverlapTable, params: AlgoParams,
         total_windows=int(nw_all.sum()),
         total_repeat_length=total_rep_len,
         total_read_length=int(lens.astype(np.int64).sum()),
-        cov_ev_w0=w0s if ev_backed else None,
-        cov_ev_w1=w1s if ev_backed else None,
-        cov_ev_off=ev_off_g if ev_backed else None,
+        cov_ev_w0=w0s, cov_ev_w1=w1s, cov_ev_off=ev_off_g,
     )
 
 
@@ -696,47 +655,24 @@ def _regimes(cfg: StaticCfg, device) -> dict:
             cfg.B, cfg.W, cfg.M, cfg.K, cfg.F, sms).regime)
 
 
-def _slab_events(shape: bucketing.BucketShape, grouped, rids=None):
-    """The events of a bucket's reads (``rids``, default all of its rows'),
-    as its int16 or int32 event columns hold them: (w0, w1) int64 and each
-    event's index among ``rids``."""
-    ev_off, w0s, w1s = grouped
-    rids = shape.read_ids if rids is None else rids
-    start = ev_off[rids]
-    cnt = ev_off[np.asarray(rids) + 1] - start
-    src, _ = _slab_copy_idx(cnt, start, _cumsum0(cnt)[:-1])
-    dt = bucketing.event_dtype(shape.B, shape.W)
-    return (w0s[src].astype(dt).astype(np.int64),
-            w1s[src].astype(dt).astype(np.int64),
-            np.repeat(np.arange(len(cnt)), cnt))
-
-
 def _wide_counts(shape: bucketing.BucketShape, n_shards: int, out: dict,
                  nw_all: np.ndarray, grouped) -> dict:
     """A wide bucket's share of the ``engine.wide.*`` counters, from its
     reads, not its padded shape: device steps, reads, their windows
     (ceil(length / r) each), the valid events it ships (``pack_events``'
-    rule), and the repeats and fragments read back from its packed rows."""
+    rule, on the events as its int16 or int32 columns hold them), and the
+    repeats and fragments read back from its packed rows."""
+    ev_off, w0s, w1s = grouped
+    rids = np.asarray(shape.read_ids)
+    start = ev_off[rids]
+    cnt = ev_off[rids + 1] - start
+    src, _ = _slab_copy_idx(cnt, start, _cumsum0(cnt)[:-1])
+    dt = bucketing.event_dtype(shape.B, shape.W)
+    w0 = w0s[src].astype(dt).astype(np.int64)
+    w1 = w1s[src].astype(dt).astype(np.int64)
     nu = shape.n_used
-    w0, w1, _ = _slab_events(shape, grouped)
     return {"buckets": n_shards, "reads": nu,
-            "windows": int(nw_all[shape.read_ids].sum()),
+            "windows": int(nw_all[rids].sum()),
             "events": int(((w1 >= w0) & (w0 >= 0) & (w0 < shape.W)).sum()),
             "repeats": int(out["rep_n"][:nu].astype(np.int64).sum()),
             "fragments": int(out["n_frag"][:nu].astype(np.int64).sum())}
-
-
-def _host_cov_rows(shape: bucketing.BucketShape, bad: np.ndarray,
-                   cov: np.ndarray, grouped) -> None:
-    """Recompute int32 coverage for rows ``bad`` of a bucket from its own
-    events (the same diff+cumsum the device runs, repeat.hpp:62-77
-    semantics) and write them into ``cov`` in place. Rows are the
-    bucket's, sharded or not: shards are contiguous row ranges."""
-    W = cov.shape[1]
-    w0, w1, r = _slab_events(shape, grouped, shape.read_ids[bad])
-    sel = (w1 >= w0) & (w0 >= 0) & (w0 <= W) & (w1 + 1 <= W)
-    r = r[sel]
-    d = np.zeros((len(bad), W + 1), dtype=np.int32)
-    np.add.at(d, (r, w0[sel]), 1)
-    np.add.at(d, (r, w1[sel] + 1), -1)
-    cov[bad] = np.cumsum(d[:, :W], axis=1)

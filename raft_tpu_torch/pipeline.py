@@ -41,7 +41,7 @@ from collections import deque
 import numpy as np
 
 from raft_tpu_torch import emit, profiling
-from raft_tpu_torch.engine_torch import compute_torch
+from raft_tpu_torch.engine_torch import COV_OUT_MODES, compute_torch
 from raft_tpu_torch.io import native
 from raft_tpu_torch.io.fasta import (ReadStore, load_reads, parse_sim_align,
                                      parse_sim_chr, parse_sim_end_pos,
@@ -481,8 +481,11 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
 
     ``gz_out`` writes the outputs BGZF-compressed (``.gz``); ``auto_e``
     estimates ``-e`` from the overlap events; ``device`` is where the
-    torch engine runs (``cuda`` or ``cpu``); ``cov_out`` is the engine's
-    coverage return mode (``host``, ``diff8`` or ``cov``).
+    torch engine runs (``cuda`` or ``cpu``). ``cov_out``, ``raft_tpu``'s
+    coverage return mode, is accepted for its command lines: a torch
+    engine run refuses a value other than ``host``, ``diff8`` or ``cov``
+    before it opens anything, and renders the coverage on the host in
+    each, so the value changes nothing else.
 
     ``chunk_reads`` > 0 runs the chunked streaming schedule in chunks of
     that many reads; 0 forces whole-file; None (the default) streams in
@@ -504,6 +507,9 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     ``device``; the outputs are the same."""
     if engine not in ("torch", "oracle"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "torch" and (cov_out or "host") not in COV_OUT_MODES:
+        raise ValueError(f"cov_out={cov_out!r}: must be one of "
+                         f"{', '.join(COV_OUT_MODES)}")
     launches0 = _lib.launch_counts()
     if chunk_reads is None and engine == "torch" and use_native is not False:
         chunk_reads = _auto_chunk_reads(read_path, paf_path)
@@ -523,8 +529,8 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
             st = _run_pipeline_chunked(
                 read_path, paf_path, params, chunk_reads, strict=strict,
                 verbose=verbose, spill_paf=spill_paf, gz_out=gz_out,
-                cov_out=cov_out, auto_e=auto_e, device=device,
-                on_bucket=on_bucket, devices=devices)
+                auto_e=auto_e, device=device, on_bucket=on_bucket,
+                devices=devices)
             if st is None and verbose:
                 # stderr: stdout stays line-identical to the reference,
                 # and the auto-chunk gate reaches this without the user
@@ -535,8 +541,8 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
             st = _run_pipeline_whole(
                 read_path, paf_path, params, engine=engine, strict=strict,
                 verbose=verbose, use_native=use_native, gz_out=gz_out,
-                auto_e=auto_e, device=device, cov_out=cov_out,
-                on_bucket=on_bucket, devices=devices)
+                auto_e=auto_e, device=device, on_bucket=on_bucket,
+                devices=devices)
     st.launches = _lib.launch_counts(launches0)
     if rec is not None:
         st.spans, st.counters = rec.spans, dict(rec.counters)
@@ -546,11 +552,11 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
 def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
                         engine: str, strict: bool, verbose: bool,
                         use_native: bool | None, gz_out: bool, auto_e: bool,
-                        device: str, cov_out: str | None, on_bucket,
+                        device: str, on_bucket,
                         devices) -> TorchRunStats:
     """Whole-file schedule: parse, one ``compute``, then the four writers
     side by side, each a span ``emit.<file>`` on its pool thread (the
-    coverage writer's may start inside ``compute``), under the ``emit``
+    coverage writer's starts inside ``compute``), under the ``emit``
     stage, which is the main thread's wait on them. A plain output
     FASTA's extent is reserved beside the parse and ``compute``
     (``emit.Reservation``, span ``emit.reserve``): from the start, sized
@@ -564,11 +570,10 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
     prefix = params.outputfilename
     un = use_native is not False
     sfx = ".gz" if gz_out else ""
-    # the side pool's two threads: the FASTA's reservation, and in
-    # cov_out="host" mode the coverage writer (.coverage.txt depends only
-    # on the binned events: the engine hands them over before any device
-    # work and the emitter runs beside it; in diff8/cov mode it renders
-    # from the result)
+    # the side pool's two threads: the FASTA's reservation, and the
+    # coverage writer (.coverage.txt depends only on the binned events:
+    # the torch engine hands them over before any device work and the
+    # writer runs beside it; the oracle's are in its result)
     side_pool = cf.ThreadPoolExecutor(max_workers=2)
     cov_fut: list = []
     reservation = None
@@ -586,10 +591,10 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
             side_pool, fasta_out,
             int(store.lens.sum(dtype=np.int64)) + store.n_reads, verbose)
 
-    def _write_coverage(pool, res):
-        return pool.submit(
+    def _write_coverage(res):
+        cov_fut.append(side_pool.submit(
             profiling.bind(emit.write_coverage, "emit.coverage"),
-            prefix + ".coverage.txt" + sfx, params.reso, res, un, gz=gz_out)
+            prefix + ".coverage.txt" + sfx, params.reso, res, un, gz=gz_out))
 
     try:
         store, table = load_inputs(
@@ -620,14 +625,14 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
                     store, table, params, strict=strict)
                 res = from_per_read_lists(store.n_reads, coverages, repeats,
                                           frags, cstats)
+                _write_coverage(res)
             else:
                 stats.devices = _device_names(device, devices)
                 res = compute_torch(
-                    store, table, params, strict=strict, cov_out=cov_out,
-                    on_cov_events=lambda early: cov_fut.append(
-                        _write_coverage(side_pool, early)),
-                    grouped=grouped, device=device,
-                    on_bucket=stats.bucket_hook(on_bucket), devices=devices)
+                    store, table, params, strict=strict,
+                    on_cov_events=_write_coverage, grouped=grouped,
+                    device=device, on_bucket=stats.bucket_hook(on_bucket),
+                    devices=devices)
 
         stats.n_reads = store.n_reads
         stats.n_paf_rows = table.n_rows
@@ -642,9 +647,9 @@ def _run_pipeline_whole(read_path: str, paf_path: str, params: AlgoParams,
         with profiling.stage(stats, "emit"):
             # the four writers touch disjoint files and release the GIL in
             # the native emitters
-            with cf.ThreadPoolExecutor(max_workers=4) as ex:
+            with cf.ThreadPoolExecutor(max_workers=3) as ex:
                 futs = [
-                    cov_fut[0] if cov_fut else _write_coverage(ex, res),
+                    cov_fut[0],
                     ex.submit(profiling.bind(emit.write_long_repeats,
                                              "emit.repeats"),
                               prefix + ".long_repeats.txt" + sfx, res, un,
@@ -751,7 +756,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                           chunk_reads: int, strict: bool = True,
                           verbose: bool = True,
                           spill_paf: bool | None = None,
-                          gz_out: bool = False, cov_out: str | None = None,
+                          gz_out: bool = False,
                           auto_e: bool = False, device: str = "cuda",
                           on_bucket=None,
                           devices=None) -> TorchRunStats | None:
@@ -987,19 +992,16 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                 cov_fut: list = []
 
                 def _write_coverage(res, _ci=ci, _lo=lo, _app=app):
-                    return _submit(
+                    cov_fut.append(_submit(
                         cov_pool, _ci, "emit.coverage", emit.write_coverage,
                         prefix + ".coverage.txt" + sfx, params.reso, res,
-                        first_read_index=_lo, append=_app, gz=gz_out)
+                        first_read_index=_lo, append=_app, gz=gz_out))
 
                 with profiling.stage(stats, "compute"):
                     res = compute_torch(
                         store, sub_table, params, strict=strict,
-                        cov_out=cov_out,
-                        on_cov_events=lambda early: cov_fut.append(
-                            _write_coverage(early)),
-                        device=device, on_bucket=bucket_hook,
-                        devices=devices)
+                        on_cov_events=_write_coverage, device=device,
+                        on_bucket=bucket_hook, devices=devices)
                 chunk_span.set(n_events=int(sub_table.n_rows))
                 profiling.count("chunk.events", sub_table.n_rows)
 
@@ -1010,8 +1012,6 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                 stats.total_repeat_length += res.total_repeat_length
                 stats.total_read_length += res.total_read_length
 
-                if not cov_fut:  # diff8/cov modes: coverage renders from res
-                    cov_fut.append(_write_coverage(res))
                 pending.append([
                     _submit(emit_pools[0], ci, "emit.fasta",
                             emit.write_fragments_fasta,

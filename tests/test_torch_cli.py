@@ -23,6 +23,10 @@ OUTS = [".reads.fasta", ".coverage.txt", ".long_repeats.txt",
         ".long_repeats.bed"]
 ARGS = ["-e", "10", "-m", "1.3", "-p", "2000", "-l", "4000", "-f", "300",
         "-v", "200"]
+# The schedules a run can take: whole-file, chunked, chunked with the PAF
+# spilled
+SCHEDULES = {"whole": [], "chunk7": ["--chunk-reads", "7"],
+             "spill": ["--chunk-reads", "7", "--spill-paf"]}
 # An import of jax or of raft_tpu (not raft_tpu_torch), at any indentation.
 PORT_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
                          r"import\s+raft_tpu(?!\w)|from\s+raft_tpu(?!\w))",
@@ -71,14 +75,34 @@ def _assert_same_run(tmp_path, capsys, args, extra=(), sfx=""):
     return b
 
 
-@pytest.mark.parametrize("mode", [
-    dict(), dict(simulated=True), dict(symmetric=True), dict(gz=True),
-    dict(fastq=True), dict(multiline=True)],
-    ids=["real", "simulated", "symmetric", "gz", "fastq", "multiline"])
-def test_outputs_byte_equal(tmp_path, capsys, mode):
-    reads, paf = datagen.standard_case(seed=11, tmpdir=str(tmp_path),
+def _inputs(tmp_path, kind, seed):
+    """A 25-read ``datagen.standard_case`` fixture: ``plain``, one of its
+    modes (``simulated``, ``gz``, ...), or ``bgzf``, the plain case's
+    reads and PAF rewritten as BGZF in 4 KiB blocks."""
+    mode = {} if kind in ("plain", "bgzf") else {kind: True}
+    reads, paf = datagen.standard_case(seed=seed, tmpdir=str(tmp_path),
                                        n_reads=25, **mode)
-    _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf])
+    if kind != "bgzf":
+        return reads, paf
+    for path in (reads, paf):
+        with open(path, "rb") as f:
+            datagen.write_bgzf(path + ".gz", f.read(), block=4096)
+    return reads + ".gz", paf + ".gz"
+
+
+@pytest.mark.parametrize("kind,schedule", [
+    pytest.param(kind, schedule, id="-".join(
+        ({"plain": "real"}.get(kind, kind),)
+        + ((schedule,) if schedule != "whole" else ())))
+    for kind in ("plain", "simulated", "symmetric", "gz", "fastq",
+                 "multiline", "bgzf")
+    for schedule in SCHEDULES])
+def test_outputs_byte_equal(tmp_path, capsys, kind, schedule):
+    """Every input kind in every schedule: files byte-equal and stdout
+    line-equal to raft_tpu.cli with the same flags."""
+    reads, paf = _inputs(tmp_path, kind, seed=11)
+    _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf],
+                     extra=SCHEDULES[schedule])
 
 
 def test_auto_e_byte_equal(tmp_path, capsys):
@@ -144,15 +168,13 @@ def test_pallas_flags_byte_equal(tmp_path, capsys, flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--chunk-reads", "5"], ["--spill-paf"], ["--cov-out", "diff8"],
-    ["--cov-out", "cov"], ["--trace", "tr"],
-    ["--chunk-reads", "4", "--spill-paf", "--cov-out", "diff8"]],
+    ["--chunk-reads", "5"], ["--spill-paf"], ["--trace", "tr"]],
     ids=lambda f: "_".join(f))
 def test_streaming_cov_out_and_trace_flags_byte_equal(tmp_path, capsys,
                                                       flag):
-    """Streaming, PAF spill, coverage return modes and --trace: files
-    byte-equal and stdout line-equal to raft_tpu.cli with the same
-    flags."""
+    """Streaming, PAF spill and --trace: files byte-equal and stdout
+    line-equal to raft_tpu.cli with the same flags. (The coverage return
+    modes are test_torch_cov_out.test_cov_out_values_byte_equal's.)"""
     reads, paf = datagen.standard_case(seed=15, tmpdir=str(tmp_path),
                                        n_reads=25)
     _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf], extra=flag)

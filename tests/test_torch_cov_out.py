@@ -1,8 +1,11 @@
-"""The port's coverage return modes (``cov_out`` host / diff8 / cov) and
-its ``--trace`` against raft_tpu (JAX on the CPU): device_step array for
-array against ``engine_jax.device_step_impl``, compute_torch against
-compute_jax and the numpy oracle, each side's inputs built with its own
-package. Every compared value is integer or boolean, so the tolerance is
+"""The coverage return modes (``cov_out`` host / diff8 / cov) and the
+port's ``--trace`` against raft_tpu (JAX on the CPU): device_step array
+for array against ``engine_jax.device_step_impl`` in each mode; the
+port's one coverage path (compute_torch) against compute_jax in each of
+its modes and the numpy oracle; and ``--cov-out`` on the command line,
+where each mode gives the same files as raft_tpu.cli running it. Each
+side's inputs are built with its own package. Every compared value is
+integer or boolean, and files are compared as bytes, so the tolerance is
 exact equality."""
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ from raft_tpu_torch import bucketing  # noqa: E402
 from raft_tpu_torch import engine_torch as et  # noqa: E402
 from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
 from raft_tpu_torch.params import AlgoParams  # noqa: E402
-from test_torch_engine import (_assert_same, _case, _mk_store,  # noqa: E402
-                               _mk_table, _random_rows)
+from test_torch_cli import (ARGS, SCHEDULES, _assert_same_run,  # noqa: E402
+                            _inputs)
+from test_torch_engine import (COV_FIELDS, _assert_same, _case,  # noqa: E402
+                               _mk_store, _mk_table, _random_rows)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ["host", "diff8", "cov"]
@@ -91,34 +96,30 @@ def test_device_step_matches_jax(mode, seed):
 
 @pytest.mark.parametrize("path", ["grouped", "sorted"])
 def test_cov_out_modes_equal(path):
-    """The three modes give identical ComputeResults, each equal to
-    compute_jax's in the same mode (cov_flat materialized in diff8/cov,
-    events in host)."""
+    """The port's one coverage path, on the native-grouped and on the
+    sorted events, equals compute_jax's result in each of its three modes,
+    the coverage compared through ensure_cov(): it carries the events and
+    no cov_flat, as compute_jax's host mode does."""
     rng = np.random.default_rng(17)
     lens = rng.integers(100, 30000, 64)
     port, ref = _case(lens, _random_rows(rng, lens, 600), path, est_cov=4,
                       cov_mul=1.2, repeat_length=800, interval_length=800,
                       read_length=2000, flanking_length=100,
                       overlap_length=50)
-    res = {m: compute_torch(*port, cov_out=m, device="cpu") for m in MODES}
-    for m in MODES:  # (ensure_cov below materializes host's cov_flat)
-        assert (res[m].cov_flat is None) == (m == "host")
-        _assert_same(res[m], compute_jax(*ref, cov_out=m))
-    np.testing.assert_array_equal(res["host"].ensure_cov(),
-                                  res["diff8"].cov_flat)
-    np.testing.assert_array_equal(res["cov"].cov_flat, res["diff8"].cov_flat)
-    for f in ("rep_s", "rep_e", "rep_off", "frag_read", "frag_char_start",
-              "frag_char_len", "frag_whole", "total_coverage",
-              "total_repeat_length"):
-        for m in ("diff8", "cov"):
-            np.testing.assert_array_equal(getattr(res[m], f),
-                                          getattr(res["host"], f), f)
+    res = compute_torch(*port, device="cpu")
+    assert res.cov_flat is None and res.cov_ev_w0 is not None
+    for m in MODES:
+        want = compute_jax(*ref, cov_out=m)
+        assert (want.cov_flat is None) == (m == "host")
+        _assert_same(res, want, skip=COV_FIELDS)
+    _assert_same(res, compute_jax(*ref, cov_out="host"))
 
 
 def test_int8_overflow_fallback():
-    """>127 intervals starting on the same window: the diff8 rows wrap
-    and are rebuilt on the host; results equal the oracle and
-    compute_jax(cov_out="diff8")."""
+    """>127 intervals starting on the same window, the rows whose int8
+    diff wraps in diff8 mode: the one path equals the oracle and
+    compute_jax(cov_out="diff8"), which rebuilds those rows on the
+    host."""
     lens = [5000, 3000]
     rows = [(0, 100, 4000, 1, 0, 3900)] * 200 + [(1, 10, 2900, 0, 5, 2895)]
     kw = dict(est_cov=10, repeat_length=1000, interval_length=1000,
@@ -126,35 +127,28 @@ def test_int8_overflow_fallback():
     ref = (_mk_store(lens, jax=True), _mk_table(rows, jax=True),
            JAlgoParams(**kw))
     res = compute_torch(_mk_store(lens), _mk_table(rows), AlgoParams(**kw),
-                        cov_out="diff8", device="cpu")
+                        device="cpu")
     cov, reps, frags, st = compute_oracle(*ref)
     want = from_per_read_lists(2, cov, reps, frags, st)
     np.testing.assert_array_equal(res.ensure_cov(), want.ensure_cov())
     for f in ("rep_s", "rep_e", "frag_char_start", "frag_char_len"):
         np.testing.assert_array_equal(getattr(res, f), getattr(want, f), f)
     assert res.total_coverage == want.total_coverage
-    _assert_same(res, compute_jax(*ref, cov_out="diff8"))
+    _assert_same(res, compute_jax(*ref, cov_out="diff8"), skip=COV_FIELDS)
     assert res.ensure_cov().max() >= 200  # the pileup really passed int8
 
 
-def test_default_cov_out_from_env(monkeypatch):
-    """RAFT_COV_OUT picks the mode when the caller names none; an
-    explicit argument wins over it."""
-    rng = np.random.default_rng(41)
-    lens = rng.integers(100, 20000, 30)
-    port, ref = _case(lens, _random_rows(rng, lens, 200), est_cov=3,
-                      repeat_length=500, interval_length=500,
-                      read_length=1500)
-    store, table, params = port
-    monkeypatch.setenv("RAFT_COV_OUT", "cov")
-    assert et.derive_cfg(8, 64, 64, params).cov_out == "cov"
-    res = compute_torch(store, table, params, device="cpu")
-    assert res.cov_flat is not None and res.cov_ev_w0 is None
-    host = compute_torch(store, table, params, cov_out="host", device="cpu")
-    assert host.cov_flat is None and host.cov_ev_w0 is not None
-    monkeypatch.delenv("RAFT_COV_OUT")
-    _assert_same(res, compute_jax(*ref, cov_out="cov"))
-    np.testing.assert_array_equal(host.ensure_cov(), res.cov_flat)
+@pytest.mark.parametrize("kind", ["plain", "gz", "bgzf"])
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("mode", MODES)
+def test_cov_out_values_byte_equal(tmp_path, capsys, mode, schedule, kind):
+    """``--cov-out`` in each mode, whole-file, chunked and spilled, on
+    plain, gzip and BGZF inputs: the port's four files and stdout equal
+    raft_tpu.cli's, which runs that mode for real (the port renders the
+    coverage on the host in every mode)."""
+    reads, paf = _inputs(tmp_path, kind, seed=15)
+    _assert_same_run(tmp_path, capsys, [*ARGS, reads, paf],
+                     extra=[*SCHEDULES[schedule], "--cov-out", mode])
 
 
 def test_trace_writes_a_chrome_trace_without_jax(tmp_path):

@@ -8,18 +8,21 @@ exact equality."""
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import datagen  # noqa: E402
 from raft_tpu import pipeline as jpipeline  # noqa: E402
 from raft_tpu.engine_jax import compute_jax  # noqa: E402
 from raft_tpu.io import fasta as jfasta  # noqa: E402
 from raft_tpu.io import paf as jpaf  # noqa: E402
 from raft_tpu.params import AlgoParams as JAlgoParams  # noqa: E402
 from raft_tpu.result import from_per_read_lists  # noqa: E402
+from raft_tpu_torch import cli as pcli  # noqa: E402
 from raft_tpu_torch import engine_torch  # noqa: E402
 from raft_tpu_torch import pipeline as ppipeline  # noqa: E402
 from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
@@ -86,12 +89,19 @@ def _as_table(rows, path, jax=False):
     return table
 
 
-def _assert_same(a, b):
+# the fields that carry the coverage, which ensure_cov() materializes
+COV_FIELDS = ("cov_flat", "cov_ev_w0", "cov_ev_w1", "cov_ev_off")
+
+
+def _assert_same(a, b, skip=("cov_flat",)):
     """Every field of the port's ComputeResult equal, one by one (the two
     packages' results are different classes with the same fields);
-    coverage compared materialized (either side may hold it as events)."""
+    coverage compared materialized (either side may hold it as events).
+    ``skip=COV_FIELDS`` compares the coverage only materialized: for a
+    ``compute_jax`` result of its ``diff8`` or ``cov`` mode, which carries
+    ``cov_flat`` and no events."""
     for f in dataclasses.fields(ComputeResult):
-        if f.name == "cov_flat":
+        if f.name in skip:
             continue
         x, y = getattr(a, f.name), getattr(b, f.name)
         if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
@@ -194,17 +204,27 @@ def test_cov_events_callback_timers_and_grouped(monkeypatch):
     _assert_same(sharded, compute_jax(*ref))
 
 
-def test_cov_out_other_than_host_is_refused(monkeypatch):
-    """A coverage return mode other than host, diff8 or cov is refused,
-    from the argument and from RAFT_COV_OUT."""
-    store = _mk_store([1000])
-    table = _as_table([(0, 0, 500, 0, 100, 600)], "grouped")
-    with pytest.raises(ValueError, match="cov_out"):
-        compute_torch(store, table, AlgoParams(est_cov=2), cov_out="diff16",
-                      device="cpu")
-    monkeypatch.setenv("RAFT_COV_OUT", "int8")
-    with pytest.raises(ValueError, match="cov_out"):
-        compute_torch(store, table, AlgoParams(est_cov=2), device="cpu")
+def test_cov_out_other_than_host_is_refused(tmp_path, capsys):
+    """A coverage return mode other than host, diff8 or cov is refused
+    when ``run_pipeline`` starts, whole-file and chunked, with the text
+    the engine gave before, and no output is opened; the CLI prints it and
+    exits 1. The engine itself takes no mode."""
+    reads, paf = datagen.standard_case(seed=21, tmpdir=str(tmp_path),
+                                       n_reads=8)
+    params = AlgoParams(est_cov=10, outputfilename=str(tmp_path / "x"))
+    for chunk in (0, 3):
+        with pytest.raises(ValueError, match=r"^cov_out='diff16': must be "
+                           r"one of host, diff8, cov$"):
+            ppipeline.run_pipeline(reads, paf, params, device="cpu",
+                                   verbose=False, chunk_reads=chunk,
+                                   cov_out="diff16")
+    assert not list(tmp_path.glob("x.*"))
+    rc = pcli.main(["-e", "10", "-o", str(tmp_path / "c"), "--device", "cpu",
+                    "--cov-out", "int8", reads, paf])
+    assert rc == 1
+    assert ("ERROR, cov_out='int8': must be one of host, diff8, cov"
+            in capsys.readouterr().err)
+    assert "cov_out" not in inspect.signature(compute_torch).parameters
 
 
 @pytest.mark.parametrize("path", ["grouped", "sorted"])

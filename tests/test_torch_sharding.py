@@ -6,6 +6,8 @@ value is integer or boolean, so the tolerance is exact equality."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -24,8 +26,9 @@ from raft_tpu_torch.engine_torch import compute_torch  # noqa: E402
 from raft_tpu_torch.io.fasta import load_reads  # noqa: E402
 from raft_tpu_torch.io.paf import load_paf  # noqa: E402
 from raft_tpu_torch.parallel import mesh  # noqa: E402
-from test_torch_engine import (_assert_same, _mk_table,  # noqa: E402
-                               _params as _pkg_params, _PKG, _random_rows)
+from test_torch_engine import (COV_FIELDS, _assert_same,  # noqa: E402
+                               _mk_table, _params as _pkg_params, _PKG,
+                               _random_rows)
 
 
 def _params(jax=False):
@@ -100,8 +103,11 @@ def test_sharded_matches_single_and_raft_tpu(tmp_path, n_dev, seed, n_reads,
 
 
 def test_sharded_int8_overflow_host_rebuild():
-    """Rows whose diff exceeds int8 are rebuilt on the host from the
-    shard-local event slabs: the global-row remap must be exact."""
+    """Rows whose diff exceeds int8, spread over the shards: the sharded
+    engine equals the unsharded one and ``compute_jax(mesh=...,
+    cov_out="diff8")``, which rebuilds those rows on the host from the
+    shard-local event slabs (its global-row remap). ``device_step`` in
+    ``diff8`` mode on each shard's inputs counts them."""
     lens = [5000] * 16
     rows = []
     for r in (3, 9, 14):  # overflow rows spread across shards
@@ -115,21 +121,19 @@ def test_sharded_int8_overflow_host_rebuild():
     devs = mesh.make_devices(8, "cpu")
 
     def count_overflow(cfg, lens_d, ev_off, ev_pk):
-        out = et.device_step(lens_d, ev_off, ev_pk, cfg=cfg)
-        bad_rows.append(int((et.unpack_out(out["packed"].numpy(), cfg)
+        c8 = dataclasses.replace(cfg, cov_out="diff8")
+        out = et.device_step(lens_d, ev_off, ev_pk, cfg=c8)
+        bad_rows.append(int((et.unpack_out(out["packed"].numpy(), c8)
                              ["ok8"] == 0).sum()))
 
-    r1 = compute_torch(store, table, params, cov_out="diff8", device="cpu")
-    r8 = compute_torch(store, table, params, cov_out="diff8", devices=devs,
+    r1 = compute_torch(store, table, params, device="cpu")
+    r8 = compute_torch(store, table, params, devices=devs,
                        on_bucket=count_overflow)
-    rh = compute_torch(store, table, params, cov_out="host", devices=devs)
     rj = compute_jax(*ref, mesh=jmesh.make_mesh(8), cov_out="diff8")
     assert sum(bad_rows) == 3 and len(bad_rows) == 8
     _assert_same(r1, r8)
-    _assert_same(r8, rj)
-    # host mode keeps the coverage as events: compare it materialized
-    np.testing.assert_array_equal(r8.ensure_cov(), rh.ensure_cov())
-    np.testing.assert_array_equal(r8.frag_char_start, rh.frag_char_start)
+    _assert_same(r8, rj, skip=COV_FIELDS)
+    assert rj.cov_flat is not None and rj.cov_ev_w0 is None
     assert r1.ensure_cov().max() >= 200
 
 

@@ -114,18 +114,6 @@ def test_chunked_streams_gz_and_fastq(tmp_path, chunk, kind):
     _assert_same_files(tmp_path, "tpu", "chunked", "whole")
 
 
-@pytest.mark.parametrize("cov_out", ["diff8", "cov"])
-def test_chunked_cov_out_modes(tmp_path, cov_out):
-    """In diff8/cov mode no coverage events reach the pipeline, so each
-    chunk's .coverage.txt renders from its result."""
-    tmp = str(tmp_path)
-    reads, paf = datagen.standard_case(seed=893, tmpdir=tmp, n_reads=23)
-    _port(reads, paf, tmp, "port", chunk_reads=5, cov_out=cov_out)
-    _tpu(reads, paf, tmp, "tpu", chunk_reads=5, cov_out=cov_out)
-    _port(reads, paf, tmp, "host", chunk_reads=5)
-    _assert_same_files(tmp_path, "tpu", "port", "host")
-
-
 def test_auto_chunk_at_scale(tmp_path, monkeypatch):
     """chunk_reads=None streams when an input is over
     RAFT_AUTO_CHUNK_BYTES; chunk_reads=0 opts out; both byte-equal to
