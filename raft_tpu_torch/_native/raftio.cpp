@@ -2548,7 +2548,7 @@ inline int fmt_u64(char* d, uint64_t v) {
 // The emitters' optional stats array (the last argument of every
 // raftio_emit_* entry point; NULL = off, and then no clock is read):
 // nanoseconds of the CountWriter pre-pass, of the render (outside the
-// writes) and inside write/writev/pwrite/pwritev/bgzf_write, the number
+// writes) and inside write/pwrite/bgzf_write, the number
 // of those calls, the shards, and the bytes written; each thread keeps
 // its own and they are added once it has joined.
 enum { kStCount = 0, kStRender, kStWrite, kStWriteCalls, kStShards,
@@ -2571,12 +2571,13 @@ inline bool timed_write(int64_t* ws, F write_call) {
   return ok;
 }
 
-// Zero-copy emitter: rendered text (headers, numbers) accumulates in a
-// fixed buffer; bulk payload (fragment sequences) is REFERENCED, not
-// copied, and both stream to the file with writev. This halves+ memory
-// traffic versus render-then-write — the binding resource on
-// bandwidth-limited hosts (and the reference's substr+ofstream path
-// copies every sequence byte twice more, chop.hpp:318).
+// Buffered emitter: rendered text and copied payload (fragment sequences)
+// accumulate in a fixed 4 MB buffer, and each flush is one write of it; a
+// payload longer than the buffer is written straight from its source
+// after a flush. Copying costs less than it saves: on a sandboxed kernel
+// such as gVisor a writev of references into the input (its file mapping
+// or the process's memory) takes about twice as long as copying the same
+// bytes into 4 MB buffers and writing those.
 class BufWriter {
  public:
   // reserved: the file's extent was allocated ahead (raftio_reserve), so
@@ -2586,10 +2587,8 @@ class BufWriter {
       : fd_(open(path, O_WRONLY | O_CREAT |
                            (append ? O_APPEND : reserved ? 0 : O_TRUNC),
                  0644)),
-        buf_(1 << 22), n_(0), seg_(0), failed_(false), bytes_(0), ws_(ws),
-        reserved_(reserved) {
-    iov_.reserve(1024);
-  }
+        buf_(1 << 22), n_(0), failed_(false), bytes_(0), ws_(ws),
+        reserved_(reserved) {}
   ~BufWriter() {
     flush();
     if (fd_ >= 0) close(fd_);
@@ -2608,13 +2607,6 @@ class BufWriter {
     memcpy(buf_.data() + n_, s, n);
     n_ += n;
   }
-  // reference external bytes without copying (valid until flush —
-  // callers pass pointers into long-lived blobs)
-  inline void put_ref(const char* s, size_t n) {
-    if (iov_.size() + 2 >= 1000) flush();
-    close_seg();
-    iov_.push_back({const_cast<char*>(s), n});
-  }
   inline void putc(char c) {
     if (n_ + 1 > buf_.size()) flush();
     buf_[n_++] = c;
@@ -2629,18 +2621,12 @@ class BufWriter {
     n_ += static_cast<size_t>(fmt_u64(d + n_, static_cast<uint64_t>(v)));
   }
   void flush() {
-    close_seg();
-    if (!iov_.empty()) {
-      for (const auto& v : iov_) bytes_ += static_cast<int64_t>(v.iov_len);
-      if (!timed_write(ws_, [&] {
-            return writev_full(fd_, iov_.data(),
-                               static_cast<int>(iov_.size()));
-          }))
+    if (n_ > 0) {
+      bytes_ += static_cast<int64_t>(n_);
+      if (!timed_write(ws_, [&] { return write_full(fd_, buf_.data(), n_); }))
         failed_ = true;
-      iov_.clear();
     }
     n_ = 0;
-    seg_ = 0;
   }
   int64_t bytes() const { return bytes_; }  // handed to write so far
   // after the last flush: a reserved file keeps no byte past the output
@@ -2651,16 +2637,9 @@ class BufWriter {
   }
 
  private:
-  inline void close_seg() {
-    if (n_ > seg_) {
-      iov_.push_back({buf_.data() + seg_, n_ - seg_});
-      seg_ = n_;
-    }
-  }
   int fd_;
   std::vector<char> buf_;
-  size_t n_, seg_;
-  std::vector<struct iovec> iov_;
+  size_t n_;
   bool failed_;
   int64_t bytes_;
   int64_t* ws_;
@@ -2694,9 +2673,6 @@ class MemWriter {
     }
     n_ += static_cast<size_t>(fmt_u64(d + n_, static_cast<uint64_t>(v)));
   }
-  // shards must own their bytes (written after the render joins), so
-  // referenced payload is copied here
-  inline void put_ref(const char* s, size_t n) { put(s, n); }
   const char* data() const { return buf_.data(); }
   size_t size() const { return n_; }
 
@@ -2713,14 +2689,11 @@ class MemWriter {
 // Byte-count pre-pass writer: same interface as BufWriter/MemWriter but
 // only accumulates the rendered size — no memory traffic. putint mirrors
 // the render writers' digit logic exactly so the counted size equals the
-// written size byte-for-byte (the pwritev ranges below depend on it).
+// written size byte-for-byte (the pwrite ranges below depend on it).
 class CountWriter {
  public:
   CountWriter() : n_(0) {}
   inline void put(const char*, size_t n) { n_ += static_cast<int64_t>(n); }
-  inline void put_ref(const char*, size_t n) {
-    n_ += static_cast<int64_t>(n);
-  }
   inline void putc(char) { n_++; }
   inline void putint(int64_t v) {
     if (v < 0) {
@@ -2738,19 +2711,17 @@ class CountWriter {
   int64_t n_;
 };
 
-// BufWriter variant that flushes with pwritev at a tracked file offset:
-// the unit of the PARALLEL zero-copy emitters — each thread renders a
-// contiguous item shard straight into its own disjoint byte range of the
-// file (sized by a CountWriter pre-pass), so payload bytes are written
-// once (no render-into-memory second pass) and all cores format and copy
+// BufWriter variant that flushes with pwrite at a tracked file offset:
+// the unit of the PARALLEL emitters — each thread renders a contiguous
+// item shard straight into its own disjoint byte range of the file (sized
+// by a CountWriter pre-pass), so payload bytes are written once (no
+// render-into-memory second pass) and all cores format and copy
 // concurrently.
 class PWriter {
  public:
   PWriter(int fd, int64_t off, int64_t* ws = nullptr)
-      : fd_(fd), off_(off), buf_(1 << 22), n_(0), seg_(0), failed_(false),
-        ws_(ws) {
-    iov_.reserve(1024);
-  }
+      : fd_(fd), off_(off), buf_(1 << 22), n_(0), failed_(false),
+        ws_(ws) {}
   ~PWriter() { flush(); }
   bool ok() const { return !failed_; }
   int64_t offset() const { return off_; }  // valid after flush()
@@ -2768,11 +2739,6 @@ class PWriter {
     memcpy(buf_.data() + n_, s, n);
     n_ += n;
   }
-  inline void put_ref(const char* s, size_t n) {
-    if (iov_.size() + 2 >= 1000) flush();
-    close_seg();
-    iov_.push_back({const_cast<char*>(s), n});
-  }
   inline void putc(char c) {
     if (n_ + 1 > buf_.size()) flush();
     buf_[n_++] = c;
@@ -2787,42 +2753,29 @@ class PWriter {
     n_ += static_cast<size_t>(fmt_u64(d + n_, static_cast<uint64_t>(v)));
   }
   void flush() {
-    close_seg();
-    if (!iov_.empty()) {
-      int64_t bytes = 0;
-      for (const auto& v : iov_) bytes += static_cast<int64_t>(v.iov_len);
+    if (n_ > 0) {
       if (!timed_write(ws_, [&] {
-            return pwritev_full(fd_, iov_.data(),
-                                static_cast<int>(iov_.size()), off_);
+            return pwrite_full(fd_, buf_.data(), n_, off_) >= 0;
           }))
         failed_ = true;
-      off_ += bytes;
-      iov_.clear();
+      off_ += static_cast<int64_t>(n_);
     }
     n_ = 0;
-    seg_ = 0;
   }
 
  private:
-  inline void close_seg() {
-    if (n_ > seg_) {
-      iov_.push_back({buf_.data() + seg_, n_ - seg_});
-      seg_ = n_;
-    }
-  }
   int fd_;
   int64_t off_;
   std::vector<char> buf_;
-  size_t n_, seg_;
-  std::vector<struct iovec> iov_;
+  size_t n_;
   bool failed_;
   int64_t* ws_;
 };
 
 // Per-file shard budget: the pipeline writes the output files
 // CONCURRENTLY (one Python thread per file), so each file gets half the
-// machine. The parallel emitters are zero-copy single-pass (CountWriter
-// pre-pass + disjoint pwritev ranges) so shards contend only on memory
+// machine. The parallel emitters are single-pass (CountWriter
+// pre-pass + disjoint pwrite ranges) so shards contend only on memory
 // bandwidth; measured on a 2-vCPU host one shard already saturates the
 // kernel copy (parallel = 0.305 s vs serial 0.274 s on the 754 MB
 // fragment file), so small machines stay serial and the parallel path
@@ -2846,10 +2799,10 @@ int emit_shards() {
 
 // Render items [0, n_items) with render(writer, lo, hi) sharded over
 // threads. Small item counts render single-threaded straight into the
-// file buffer. The parallel plain-file path is zero-copy single-pass:
+// file buffer. The parallel plain-file path is single-pass:
 // a CountWriter pre-pass (no memory traffic — formatting arithmetic
 // only) sizes each shard's byte range, then every thread renders its
-// shard with a PWriter straight into its disjoint pwritev range. With
+// shard with a PWriter straight into its disjoint pwrite range. With
 // gz != 0 the shards render into memory and are BGZF-compressed
 // (block-parallel) instead, ending with the BGZF EOF marker;
 // decompressed bytes are identical to the gz=0 output. With `st` set
@@ -2933,7 +2886,7 @@ int emit_sharded(const char* path, int64_t n_items, int append,
     close(fd);
     return 0;
   }
-  // parallel zero-copy: counting pre-pass → disjoint pwritev ranges
+  // parallel: counting pre-pass → disjoint pwrite ranges
   std::vector<int64_t> sizes(static_cast<size_t>(T), 0);
   {
     std::vector<std::thread> threads;
@@ -3192,7 +3145,7 @@ int raftio_emit_frags_full(
         w.putc('\n');
       }
     }
-    w.put_ref(seq_blob + seq_off[i] + cs, static_cast<size_t>(cl));
+    w.put(seq_blob + seq_off[i] + cs, static_cast<size_t>(cl));
     w.putc('\n');
   }
   };

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import os
+import random
 import subprocess
 import sys
 import time
@@ -322,31 +323,38 @@ def _memfd_outputs(prefix):
     return fds
 
 
-RESERVE_CASES = ("overshoot", "undershoot", "fails", "memfd")
+RESERVE_CASES = ("overshoot", "undershoot", "fails", "memfd", "memfd_fails")
 
 
 @pytest.mark.parametrize("shards", ["1", "4"])
 @pytest.mark.parametrize("case", RESERVE_CASES)
+@pytest.mark.parametrize("source", ["heap", "mapped"])
 def test_reserved_fasta_outputs_equal(reserve_case, tmp_path, monkeypatch,
-                                      case, shards):
+                                      case, shards, source):
     """The whole-file schedule reserves the plain FASTA's extent ahead of
     its writer; the four outputs stay raft_tpu's, byte for byte, on the
     serial and the sharded emitter, whether the reservation overshoots
     the output (the file shrinks to its size), undershoots it (the
     writes allocate the rest), fails (nothing reserved, counter 0) or
-    lands in a memfd behind a symlink."""
+    lands in a memfd behind a symlink, reserved or not. The writer copies
+    every sequence into its buffer, whether the reads load into the
+    process's memory (``heap``: the fixture is under the threaded
+    parser's threshold) or stay in the input's file mapping
+    (``mapped``)."""
     reads, paf_path, ref = reserve_case
     monkeypatch.setenv("RAFT_EMIT_SHARDS", shards)
     monkeypatch.setenv("RAFT_SPANS", "1")
+    if source == "mapped":
+        monkeypatch.setenv("RAFT_IO_MT_THRESHOLD", "0")
     if case == "overshoot":
         real = native.reserve
         monkeypatch.setattr(native, "reserve",
                             lambda path, n: real(path, 4 * n + 4096))
-    if case == "fails":
+    if case.endswith("fails"):
         monkeypatch.setattr(native._get_lib(), "raftio_reserve",
                             lambda path, n: -28)  # ENOSPC
     prefix = str(tmp_path / "out")
-    fds = _memfd_outputs(prefix) if case == "memfd" else {}
+    fds = _memfd_outputs(prefix) if case.startswith("memfd") else {}
     try:
         st = pipeline.run_pipeline(
             reads, paf_path,
@@ -365,7 +373,54 @@ def test_reserved_fasta_outputs_equal(reserve_case, tmp_path, monkeypatch,
     reserved = st.counters["emit.fasta.reserved_bytes"]
     assert st.counters["emit.fasta.bytes"] == size
     assert {"overshoot": reserved > size, "undershoot": 0 < reserved < size,
-            "fails": reserved == 0, "memfd": reserved > 0}[case], reserved
+            "fails": reserved == 0, "memfd": reserved > 0,
+            "memfd_fails": reserved == 0}[case], reserved
+
+
+@pytest.fixture(scope="module")
+def oversized_case(tmp_path_factory):
+    """Short reads around one read longer than the FASTA writer's 4 MB
+    buffer, every read passed whole (``-l`` above the longest), and
+    raft_tpu's four outputs on them."""
+    from raft_tpu.params import AlgoParams as JAlgoParams
+    tmp = str(tmp_path_factory.mktemp("oversized"))
+    rng = random.Random(45)
+    reads = datagen.make_reads(rng, 8, 300, 20000)
+    reads.insert(4, ("r_long", datagen._seq(rng, 4096) * 1100))
+    reads_path, paf_path = f"{tmp}/reads.fasta", f"{tmp}/overlaps.paf"
+    datagen.write_fasta(reads_path, reads)
+    datagen.write_paf(paf_path, datagen.make_paf(rng, reads, 40,
+                                                 include_self=True))
+    jpipeline.run_pipeline(
+        reads_path, paf_path,
+        _reserve_params(tmp, "ref", JAlgoParams).replace(
+            read_length=5_000_000), engine="jax", verbose=False)
+    ref = {}
+    for ext in OUT_EXTS:
+        with open(f"{tmp}/ref{ext}", "rb") as f:
+            ref[ext] = f.read()
+    return reads_path, paf_path, ref
+
+
+@pytest.mark.parametrize("shards", ["1", "4"])
+def test_oversized_read_fasta_equal(oversized_case, tmp_path, monkeypatch,
+                                    shards):
+    """A whole read longer than the writer's buffer: the writer flushes
+    and writes it straight from the store, and the outputs stay
+    raft_tpu's on the serial and the sharded emitter."""
+    reads, paf_path, ref = oversized_case
+    monkeypatch.setenv("RAFT_EMIT_SHARDS", shards)
+    st = pipeline.run_pipeline(
+        reads, paf_path,
+        _reserve_params(str(tmp_path), "out", pipeline.AlgoParams).replace(
+            read_length=5_000_000), device="cpu", verbose=False)
+    for ext in OUT_EXTS:
+        with open(f"{tmp_path}/out{ext}", "rb") as f:
+            assert f.read() == ref[ext], ext
+    frags = [ln for ln in ref[".reads.fasta"].split(b"\n")
+             if ln and not ln.startswith(b">")]
+    assert max(map(len, frags)) > 1 << 22
+    assert sum(map(len, frags)) == st.total_read_length
 
 
 def test_failure_before_the_writer_leaves_no_reserved_fasta(
